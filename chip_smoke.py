@@ -1,0 +1,368 @@
+#!/usr/bin/env python3
+"""Smoke run of kmdiff_tpu_torch (the PyTorch/CUDA port) on one NVIDIA GPU.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
+   versions, and builds the port's four CUDA kernels from csrc/ with nvcc.
+2. Holds each kernel against its plain PyTorch twin on the card at the
+   main path's shapes and prints both median times (CUDA events).
+   Integers must be equal; lr within rtol 1e-6 and atol 1e-6; keep equal
+   except where the margin-adjusted lr lies within 1e-5*max(1, lr) of
+   lr_min.
+3. Drives the main path through the port's CLI: popsim of the bench cohort
+   (10 controls + 10 cases, 2^23 bp genome, 150 bp reads, coverage 1, error
+   rate 0.001, seed 7), `count` (k=31, 4 partitions, hard-min 1) and `diff`
+   (-1 10 -2 10, defaults) on CUDA, with every kernel's launch count reset
+   just before and required > 0 just after. Then it reruns `diff` and
+   recounts sample 0 with device="cpu" (the plain twins) and requires
+   byte-identical outputs.
+
+Exits non-zero, printing no result, without CUDA or without the rest of the
+checkout. The last line of standard output is the result:
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(HERE, "build", "chip_smoke")
+
+GENOME = 1 << 23
+N_CONTROLS = N_CASES = 10
+
+
+def median_ms(fn, reps: int = 15, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def check_equal(name: str, a, b) -> int:
+    import torch
+
+    if a.shape != b.shape or not torch.equal(a, b):
+        diff = "shape" if a.shape != b.shape else int((a != b).sum())
+        raise AssertionError(f"{name}: kernel and plain twin differ ({diff})")
+    return 0
+
+
+def compare_lrt(dev, rng, B, S, nb_controls, params, max_count):
+    import numpy as np
+    import torch
+
+    from kmdiff_tpu_torch.ops.lrt import MARGIN_ABS, MARGIN_PER_COUNT
+    from kmdiff_tpu_torch.ops.lrt_kernel import lrt_filter, lrt_filter_plain
+
+    counts = torch.from_numpy(
+        rng.integers(0, max_count, size=(B, S), dtype=np.int32)).to(dev)
+    args = (nb_controls, params.ratio_c, params.ratio_k, params.lr_min)
+    keep, lr, s_c, s_k = lrt_filter(counts, *args)
+    keep_p, lr_p, s_c_p, s_k_p = lrt_filter_plain(counts, *args)
+    torch.cuda.synchronize()
+    check_equal("lrt_filter s_c", s_c, s_c_p)
+    check_equal("lrt_filter s_k", s_k, s_k_p)
+    if not torch.allclose(lr, lr_p, rtol=1e-6, atol=1e-6):
+        raise AssertionError("lrt_filter: lr outside rtol/atol 1e-6")
+    tot = (s_c_p + s_k_p).double()
+    adj = lr_p.double() + MARGIN_PER_COUNT * tot + MARGIN_ABS
+    boundary = (adj - params.lr_min).abs() <= 1e-5 * torch.clamp(lr_p.double(), min=1.0)
+    if not torch.equal(keep[~boundary], keep_p[~boundary]):
+        raise AssertionError("lrt_filter: keep differs off the boundary")
+    err = float((lr - lr_p).abs().max())
+    ms = median_ms(lambda: lrt_filter(counts, *args))
+    plain = median_ms(lambda: lrt_filter_plain(counts, *args))
+    print(f"[K-LRT] lrt_filter [{B}, {S}] nb_controls={nb_controls}: "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, max|dlr| {err:.3g}, "
+          f"kept {int(keep.sum())}, boundary rows {int(boundary.sum())}")
+    return ms, plain, err
+
+
+def compare_kernels(dev) -> dict:
+    """Phase 2: every kernel against its plain twin at main-path shapes."""
+    import numpy as np
+    import torch
+
+    from kmdiff_tpu_torch.ops import codec
+    from kmdiff_tpu_torch.ops.lrt import LrtParams
+
+    rng = np.random.default_rng(7)
+    out = {}
+
+    # K-LRT: the merge's [U, 2] group sums, and matrix-path [2^17, S] tiles
+    params = LrtParams(N_CONTROLS, N_CASES, 80_000_000, 84_000_000, 0.05 / 1e5)
+    ms, plain, err = compare_lrt(dev, rng, 1 << 22, 2, 1, params, 400)
+    compare_lrt(dev, rng, 1 << 17, N_CONTROLS + N_CASES, N_CONTROLS, params, 64)
+    out["lrt_filter"] = (ms, plain, err)
+
+    # K-EXT: 2^24 codes at k=31, INVALID every 151 bytes (150 bp reads)
+    codes_np = rng.integers(0, 4, 1 << 24).astype(np.uint8)
+    codes_np[150::151] = codec.INVALID
+    codes = torch.from_numpy(codes_np).to(dev)
+    keys = codec.canonical_kmers(codes, 31)
+    check_equal("canonical_kmers", keys, codec.canonical_kmers_plain(codes, 31))
+    ms = median_ms(lambda: codec.canonical_kmers(codes, 31))
+    plain = median_ms(lambda: codec.canonical_kmers_plain(codes, 31))
+    print(f"[K-EXT] canonical_kmers 2^24 codes k=31: kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms")
+    out["canonical_kmers"] = (ms, plain, 0.0)
+
+    # K-RUN and K-CMP on 2^23 sorted keys: random k-mers, eight repeats of
+    # 2*10^4 copies each, and a sentinel tail
+    n = 1 << 23
+    raw = rng.integers(-(2**62), 2**62, n, dtype=np.int64)
+    raw[: 8 * 20_000] = np.repeat(raw[:8], 20_000)
+    raw[-5000:] = codec.SENTINEL
+    keys_s = torch.sort(torch.from_numpy(raw).to(dev)).values
+    flags, n_valid = codec.run_flags(keys_s)
+    flags_p, n_valid_p = codec.run_flags_plain(keys_s)
+    check_equal("run_flags", flags, flags_p)
+    check_equal("run_flags n_valid", n_valid, n_valid_p)
+    starts, run_keys = codec.compact(flags, keys_s)
+    starts_p, run_keys_p = codec.compact_plain(flags, keys_s)
+    check_equal("compact indices", starts, starts_p)
+    check_equal("compact payload", run_keys, run_keys_p)
+    lengths = codec.run_lengths(starts, n_valid)
+    check_equal("run_lengths", lengths, codec.run_lengths_plain(starts, n_valid))
+    if int(lengths.max()) <= 10_000:
+        raise AssertionError("the run test input lost its long runs")
+
+    # group sums at the merge's shape: ~2 rows per distinct k-mer, packed
+    # int16 counts with the control flag in bit 15, read through the sort's
+    # permutation
+    half = rng.integers(-(2**62), 2**62, n // 2, dtype=np.int64)
+    mkeys = np.concatenate([half, np.where(rng.random(n // 2) < 0.6, half,
+                                           half ^ 0x5A5A)])
+    mcount = rng.integers(1, 300, n).astype(np.int16)
+    mcount[: n // 2] |= np.int16(-0x8000)
+    mkeys_s, perm = torch.sort(torch.from_numpy(mkeys).to(dev))
+    mcount_d = torch.from_numpy(mcount).to(dev)
+    mflags, mn_valid = codec.run_flags(mkeys_s)
+    mstarts, _ = codec.compact(mflags)
+    sums = codec.run_group_sums(mstarts, mn_valid, perm, mcount_d)
+    check_equal("run_group_sums", sums,
+                codec.run_group_sums_plain(mstarts, mn_valid, perm, mcount_d))
+
+    t_flags = median_ms(lambda: codec.run_flags(keys_s))
+    t_flags_p = median_ms(lambda: codec.run_flags_plain(keys_s))
+    t_len = median_ms(lambda: codec.run_lengths(starts, n_valid))
+    t_len_p = median_ms(lambda: codec.run_lengths_plain(starts, n_valid))
+    t_sums = median_ms(lambda: codec.run_group_sums(mstarts, mn_valid, perm, mcount_d))
+    t_sums_p = median_ms(
+        lambda: codec.run_group_sums_plain(mstarts, mn_valid, perm, mcount_d))
+    print(f"[K-RUN] run_flags 2^23 keys: kernel {t_flags:.4f} ms, plain "
+          f"{t_flags_p:.4f} ms; run_lengths {len(starts)} runs (longest "
+          f"{int(lengths.max())}): kernel {t_len:.4f} ms, plain {t_len_p:.4f} "
+          f"ms; run_group_sums {len(mstarts)} runs of 2^23 rows: kernel "
+          f"{t_sums:.4f} ms, plain {t_sums_p:.4f} ms")
+    out["run_bounds"] = (t_flags + t_len + t_sums,
+                         t_flags_p + t_len_p + t_sums_p, 0.0)
+
+    ms = median_ms(lambda: codec.compact(flags, keys_s))
+    plain = median_ms(lambda: codec.compact_plain(flags, keys_s))
+    print(f"[K-CMP] compact 2^23 rows -> {len(starts)} with payload: kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms")
+    out["compact"] = (ms, plain, 0.0)
+    return out
+
+
+def _read_fasta(path):
+    with open(path) as f:
+        lines = f.read().split("\n")
+    return [(lines[i][1:], lines[i + 1]) for i in range(0, len(lines) - 1, 2)]
+
+
+def _diff_cpu_vs_gpu(main, dev, args, label, alpha):
+    """Run `diff` with args on the CPU (and on `dev` unless out_gpu of this
+    label exists); require byte-identical FASTA of 31-mers with p < alpha.
+    Returns (k-mers tested, {group: significant k-mers})."""
+    outs = {}
+    for name, where in (("gpu", dev), ("cpu", "cpu")):
+        out = os.path.join(WORK, f"{label}_{name}")
+        if not os.path.exists(out):
+            main([*args, "--output-dir", out], device=where)
+        outs[name] = out
+    tested = []
+    for out in outs.values():
+        with open(os.path.join(out, "options.json")) as f:
+            tested.append(json.load(f)["total_kmers"])
+    if tested[0] != tested[1]:
+        raise AssertionError(f"{label}: k-mers tested differ: {tested}")
+    n_sig = {}
+    for g in ("control", "case"):
+        a, b = (os.path.join(o, f"{g}_kmers.fasta") for o in outs.values())
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"{label} {g}_kmers.fasta: CUDA and "
+                                     "CPU differ")
+        recs = _read_fasta(a)
+        for name, seq in recs:
+            p = float(name.split("pval=")[1].split("_")[0])
+            if len(seq) != 31 or not 0.0 <= p < alpha:
+                raise AssertionError(f"{label} {g}: bad record {name} {seq}")
+        n_sig[g] = len(recs)
+    return tested[0], n_sig
+
+
+def run_main_path(dev) -> dict:
+    """Phase 3: popsim -> count -> diff on CUDA, then the CPU reruns."""
+    from kmdiff_tpu_torch import kernels
+    from kmdiff_tpu_torch.cli import main
+
+    sim = os.path.join(WORK, "sim")
+    t0 = time.perf_counter()
+    main(["popsim", "-o", sim, "--genome-len", str(GENOME), "-1",
+          str(N_CONTROLS), "-2", str(N_CASES), "--read-size", "150",
+          "--coverage", "1", "--error-rate", "0.001", "--random-seed", "7"],
+         device=dev)
+    print(f"[cohort] {N_CONTROLS}+{N_CASES} samples x {GENOME} bp, 150 bp "
+          f"reads, coverage 1 (simulated in {time.perf_counter() - t0:.1f} s)")
+    fof = os.path.join(sim, "fof.txt")
+    run = os.path.join(WORK, "run")
+    count_args = ["count", "--file", fof, "--kmer-size", "31", "--hard-min",
+                  "1", "--nb-partitions", "4", "--threads", "4"]
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    main([*count_args, "--run-dir", run], device=dev)
+    t_count = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    diff_args = ["diff", "--km-run-dir", run, "-1", str(N_CONTROLS), "-2",
+                 str(N_CASES), "--threads", "4"]
+    main([*diff_args, "--output-dir", os.path.join(WORK, "defaults_gpu")],
+         device=dev)
+    t_diff = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    print(f"[main path] count {t_count:.3f} s, diff {t_diff:.3f} s "
+          f"(wall, CUDA); launches {launches}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"main path never launched {missing}")
+
+    t0 = time.perf_counter()
+    tested, n_sig = _diff_cpu_vs_gpu(main, dev, diff_args, "defaults", 0.05)
+    print(f"[main path] {tested} k-mers tested, significant {n_sig}; "
+          f"CPU+CUDA rerun {time.perf_counter() - t0:.3f} s, FASTA "
+          f"byte-identical")
+    # the defaults (alpha 0.05 over ~10^7 tests, Bonferroni) may keep no
+    # k-mer of a coverage-1 cohort; a looser cut exercises non-empty
+    # survivor sets on the same run dir
+    loose = [*diff_args, "-s", "0.001", "--cutoff", "1", "-c", "disabled"]
+    t0 = time.perf_counter()
+    _tested, n_loose = _diff_cpu_vs_gpu(main, dev, loose, "loose", 0.001)
+    if not n_loose["case"] or not n_loose["control"]:
+        raise AssertionError(f"no k-mer passed p < 0.001: {n_loose}")
+    print(f"[check] diff -s 0.001 --cutoff 1 -c disabled: {n_loose} "
+          f"k-mers, CPU and CUDA byte-identical "
+          f"({time.perf_counter() - t0:.3f} s)")
+
+    # recount sample 0 on the CPU
+    with open(fof) as f:
+        first = f.readline()
+    fof0 = os.path.join(WORK, "fof0.txt")
+    with open(fof0, "w") as f:
+        f.write(first)
+    sid = first.split(":")[0].strip()
+    run0 = os.path.join(WORK, "run_cpu0")
+    t0 = time.perf_counter()
+    main([*count_args[:2], fof0, *count_args[3:], "--run-dir", run0],
+         device="cpu")
+    t_cpu0 = time.perf_counter() - t0
+    rels = [os.path.join("histograms", f"{sid}.hist")] + [
+        os.path.join("counts", f"partition_{p}", f"{sid}.kmer.lz4")
+        for p in range(4)
+    ]
+    for rel in rels:
+        with open(os.path.join(run, rel), "rb") as fa, \
+                open(os.path.join(run0, rel), "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"{rel}: CUDA and CPU counts differ")
+    print(f"[main path] sample {sid} recounted on CPU in {t_cpu0:.3f} s: "
+          f".kmer.lz4 and .hist byte-identical")
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    try:
+        from kmdiff_tpu_torch import kernels
+    except ImportError as e:
+        print(f"chip_smoke: the kmdiff_tpu_torch package is missing: {e}",
+              file=sys.stderr)
+        return 1
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    kernels.lib()
+    print(f"kernels built in {kernels.build_seconds:.1f} s (loaded "
+          f"{time.perf_counter() - t0:.1f} s): {kernels.library_path()}")
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    try:
+        timings = compare_kernels(dev)
+        launches = run_main_path(dev)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+    if loaded:
+        raise AssertionError(f"JAX was imported: {loaded}")
+
+    meta = {
+        "lrt_filter": "kmdiff_tpu/ops/lrt_pallas.py:68",
+        "canonical_kmers": "kmdiff_tpu/ops/codec.py:73",
+        "run_bounds": "kmdiff_tpu/ops/codec.py:341",
+        "compact": "kmdiff_tpu/ops/merge_dev.py:49",
+    }
+    rows = []
+    for name, replaces in meta.items():
+        ms, plain, err = timings[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"kmdiff_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        })
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,22 @@
+"""`count`: build a kmtricks-compatible counting run directory from read
+sets (port of kmdiff_tpu/cmd/count.py)."""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from kmdiff_tpu.cmd.options import CountOptions
+from kmdiff_tpu.utils.logging import logger
+from kmdiff_tpu.utils.timer import Timer
+from kmdiff_tpu_torch.pipeline.count import run_count
+
+
+def main_count(opt: CountOptions, device: torch.device) -> None:
+    timer = Timer()
+    run_count(opt, device)
+    # consumed later by read_config (reference: src/cmd.cpp:46-47)
+    with open(os.path.join(opt.directory, "kmdiff-count.opt"), "w") as f:
+        f.write(f"kmer_size={opt.kmer_size}, abundance_min={opt.hard_min}\n")
+    logger.info("Done in %s.", timer.formatted())

@@ -1,0 +1,201 @@
+"""`diff`: the differential analysis (port of kmdiff_tpu/cmd/diff.py, single
+process, no popstrat). Stages:
+
+  1. load the run dir's config and per-sample totals (histograms)
+  2. resume detection against the options manifest and spilled partitions
+  3. per-partition merge + Poisson LR filter on the device (pipeline.merge)
+  4. multiple-testing correction + control/case FASTA|KFF
+     (kmdiff_tpu.pipeline.aggregate)
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from kmdiff_tpu.cmd.options import (
+    REDO_MERGE,
+    DiffOptions,
+    compare_options,
+    dump_options,
+    load_options,
+)
+from kmdiff_tpu.core.corrector import make_corrector
+from kmdiff_tpu.core.model import PoissonLikelihood
+from kmdiff_tpu.io.accumulator import FileAccumulator, partitions_exist
+from kmdiff_tpu.io.kmtricks import (
+    get_matrix_paths,
+    get_partition_paths,
+    get_total_kmer,
+    read_config,
+    read_fof,
+)
+from kmdiff_tpu.pipeline.aggregate import Aggregator
+from kmdiff_tpu.utils.exceptions import InputError
+from kmdiff_tpu.utils.logging import logger
+from kmdiff_tpu.utils.progress import get_progress_bar
+from kmdiff_tpu.utils.rss import get_peak_rss_mb
+from kmdiff_tpu.utils.timer import Timer
+from kmdiff_tpu_torch.pipeline.merge import GlobalMerge, PartitionProcessor
+
+
+def _reject_unported(opt: DiffOptions) -> None:
+    unported = [
+        (opt.pop_correction, "--pop-correction", "item 5: popstrat"),
+        (opt.model_lib_path, "--model", "item 6: plugins"),
+        (opt.save_sk, "--save-sk", "item 4: --save-sk and geno rows"),
+    ]
+    for flag, name, item in unported:
+        if flag:
+            raise NotImplementedError(
+                f"{name} is not ported to kmdiff_tpu_torch yet "
+                f"(ROADMAP.md port queue {item})"
+            )
+
+
+def _make_accumulators(opt: DiffOptions, nb_partitions: int, kmer_size: int,
+                       part_dir: str, read: bool):
+    if opt.in_memory and not read:
+        # -m/--in-memory: significant k-mers stay in RAM, no spill files
+        # (and so nothing to resume from)
+        from kmdiff_tpu.io.accumulator import VectorAccumulator
+
+        return [VectorAccumulator() for _ in range(nb_partitions)]
+    return [
+        FileAccumulator(
+            os.path.join(part_dir, f"p{i}_uncorrected"),
+            kmer_size,
+            read=read,
+            delete_on_destroy=not opt.keep_tmp,
+        )
+        for i in range(nb_partitions)
+    ]
+
+
+def do_diff(opt: DiffOptions, config, accumulators,
+            device: torch.device) -> int:
+    """Merge + test stage (reference: diff.hpp:66-164); returns the number
+    of distinct k-mers tested."""
+    timer = Timer()
+    logger.info("Process partitions")
+
+    total_controls, total_cases = get_total_kmer(
+        opt.kmtricks_dir, opt.nb_controls, opt.nb_cases, config.abundance_min
+    )
+    logger.debug("Nb k-mers controls: %s", total_controls)
+    logger.debug("Nb k-mers cases: %s", total_cases)
+    model = PoissonLikelihood(
+        opt.nb_controls, opt.nb_cases, total_controls, total_cases, opt.log_size
+    )
+    processor = PartitionProcessor(
+        model, opt.nb_controls, opt.nb_cases,
+        threshold=opt.threshold / opt.cutoff, device=device,
+    )
+    merger = GlobalMerge(
+        processor, accumulators, nb_threads=opt.nb_threads,
+        progress=get_progress_bar("progress", config.nb_partitions),
+    )
+    matrix_paths = get_matrix_paths(opt.kmtricks_dir)
+    if matrix_paths:
+        total_kmers = merger.merge_matrices(matrix_paths)
+    else:
+        total_kmers = merger.merge_partitions(
+            get_partition_paths(opt.kmtricks_dir, config.nb_partitions)
+        )
+
+    sign_controls, sign_cases = merger.signs()
+    logger.info("Partitions processed (%s)", timer.formatted())
+    logger.info("%d/%d significant k-mers.", merger.nb_sign(), total_kmers)
+    logger.info(
+        "Before correction: %d (control), %d (case).", sign_controls, sign_cases
+    )
+    return total_kmers
+
+
+def do_correction(opt: DiffOptions, config, accumulators,
+                  total_kmers: int) -> tuple[int, int]:
+    """Correction + output stage (reference: diff.hpp:227-260); host only."""
+    timer = Timer()
+    if opt.correction.name == "NOTHING":
+        logger.info("Aggregate partitions...")
+    else:
+        logger.info("Aggregate partitions and apply significance correction...")
+    agg = Aggregator(
+        accumulators,
+        make_corrector(opt.correction, opt.threshold, total_kmers),
+        config.kmer_size,
+        opt.output_directory,
+        kff=opt.kff,
+        threshold=opt.threshold,
+        total_kmers=total_kmers,
+        progress=get_progress_bar("progress", config.nb_partitions),
+    )
+    agg.run()
+    c_controls, c_cases = agg.counts()
+    logger.info("Partitions aggregated (%s)", timer.formatted())
+    logger.info("Significant k-mers: %d (control), %d (case).", c_controls, c_cases)
+    return c_controls, c_cases
+
+
+def main_diff(opt: DiffOptions, device: torch.device) -> dict:
+    """Orchestrator with resume (reference: diff.hpp:262-377): an unchanged
+    rerun reuses the spilled partitions; a new threshold or cutoff redoes
+    the merge; a new correction only redoes the output."""
+    _reject_unported(opt)
+    whole = Timer()
+    config = read_config(opt.kmtricks_dir)
+    n_fof = len(read_fof(opt.kmtricks_dir))
+    if opt.nb_controls + opt.nb_cases != n_fof:
+        raise InputError(
+            f"cohort size mismatch: -1 {opt.nb_controls} + -2 {opt.nb_cases} "
+            f"= {opt.nb_controls + opt.nb_cases}, but the run dir's fof has "
+            f"{n_fof} samples"
+        )
+
+    part_dir = os.path.join(opt.output_directory, "partitions")
+    os.makedirs(part_dir, exist_ok=True)
+    manifest = os.path.join(opt.output_directory, "options.json")
+
+    action = 0
+    prev_merge = prev_out = False
+    prev_opt = None
+    if os.path.exists(manifest):
+        prev_opt = load_options(manifest)
+        action = compare_options(opt, prev_opt)
+        prev_merge = partitions_exist("{}/p{}_uncorrected",
+                                      config.nb_partitions, part_dir)
+        ext = "kff" if opt.kff else "fasta"
+        prev_out = all(
+            os.path.exists(os.path.join(opt.output_directory, f"{g}_kmers.{ext}"))
+            for g in ("control", "case")
+        )
+        logger.debug("resume: merge=%s output=%s action=%d",
+                     prev_merge, prev_out, action)
+
+    redo_merge = not prev_merge or bool(action & REDO_MERGE)
+    if redo_merge:
+        accumulators = _make_accumulators(
+            opt, config.nb_partitions, config.kmer_size, part_dir, read=False
+        )
+        opt.total_kmers = do_diff(opt, config, accumulators, device)
+    else:
+        opt.total_kmers = prev_opt.total_kmers
+        accumulators = _make_accumulators(
+            opt, config.nb_partitions, config.kmer_size, part_dir, read=True
+        )
+    dump_options(opt, manifest)
+
+    counts = (0, 0)
+    if not prev_out or action > 0 or redo_merge:
+        counts = do_correction(opt, config, accumulators, opt.total_kmers)
+    for acc in accumulators:
+        acc.destroy()
+
+    logger.info("Done in %s, Peak RSS -> %d MB.", whole.formatted(),
+                get_peak_rss_mb())
+    return {
+        "total_kmers": opt.total_kmers,
+        "control": counts[0],
+        "case": counts[1],
+    }

@@ -1,0 +1,188 @@
+"""Build, load and launch the hand-written CUDA kernels of the port.
+
+The four kernels live in ``csrc/*.cu`` beside this file:
+
+  lrt_filter       K-LRT  Poisson LR filter       (ops.lrt_kernel)
+  canonical_kmers  K-EXT  canonical k-mer keys    (ops.codec)
+  run_bounds       K-RUN  run starts and sums     (ops.codec)
+  compact          K-CMP  ordered compaction      (ops.codec)
+
+They are compiled with ``nvcc`` for ``sm_90a`` into one shared library with
+a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds). The build happens at the first launch in a process, never
+at import, into ``build/kmdiff_tpu_torch/`` under the checkout; the file
+name carries a hash of the sources, so an edited source is rebuilt and a
+stale library is never loaded.
+
+Each call of a kernel's C entry point (``launch``) adds one to that
+kernel's launch count (``launch_counts``); a caller resets the counts,
+drives a path and reads them to show the path went through the kernels. A
+C entry point returns ``cudaGetLastError()`` after its launches and
+``launch`` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kmdiff_tpu_torch")
+
+KERNELS = ("lrt_filter", "canonical_kmers", "run_bounds", "compact")
+
+#: -fmad=false and no --use_fast_math: the LR margin assumes IEEE logf,
+#: division and unfused multiply-adds (kmdiff_tpu/ops/lrt.py:41-46)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_vp = ctypes.c_void_p
+_ll = ctypes.c_longlong
+_i = ctypes.c_int
+_f = ctypes.c_float
+
+#: C signatures: name -> (restype, argtypes)
+_SIGNATURES = {
+    "kmd_lrt_filter": (_i, [_vp, _ll, _i, _i, _f, _f, _f, _vp, _vp, _vp, _vp, _vp]),
+    "kmd_canonical_kmers": (_i, [_vp, _ll, _i, _vp, _vp]),
+    "kmd_run_flags": (_i, [_vp, _ll, _vp, _vp, _vp]),
+    "kmd_run_lengths": (_i, [_vp, _ll, _vp, _vp, _vp]),
+    "kmd_run_group_sums": (_i, [_vp, _ll, _vp, _vp, _vp, _i, _vp, _vp]),
+    "kmd_compact_tile_rows": (_ll, []),
+    "kmd_compact_offsets": (_i, [_vp, _ll, _vp, _vp]),
+    "kmd_compact_scatter": (_i, [_vp, _ll, _vp, _vp, _vp, _vp, _vp]),
+    "kmd_error_string": (ctypes.c_char_p, [_i]),
+}
+
+
+class _Launches:
+    """Per-kernel launch counts, shared by every thread of the process
+    (the count and diff pipelines launch from worker threads)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n = dict.fromkeys(KERNELS, 0)
+
+    def add(self, name: str) -> None:
+        with self._lock:
+            self._n[name] += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = dict.fromkeys(KERNELS, 0)
+
+    def snapshot(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self._n)
+
+
+_launches = _Launches()
+_lib_lock = threading.Lock()
+_lib = None
+#: seconds the last build took in this process (0.0 when loaded from cache)
+build_seconds = 0.0
+
+
+def reset_launch_counts() -> None:
+    _launches.reset()
+
+
+def launch_counts() -> dict[str, int]:
+    return _launches.snapshot()
+
+
+def sources() -> list[str]:
+    return sorted(
+        os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the kmdiff_tpu_torch kernels")
+
+
+def library_path() -> str:
+    h = hashlib.sha1()
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"libkmdiff_kernels-{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile csrc/*.cu into the hashed library unless it exists."""
+    global build_seconds
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in sources() if s.endswith(".cu")]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}"
+        )
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def lib():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            handle = ctypes.CDLL(build())
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _lib = handle
+    return _lib
+
+
+def launch(kernel: str, entry: str, *args) -> None:
+    """Call C entry point `entry` of `kernel` on the current stream, raise
+    on a CUDA error, and count one launch of `kernel`."""
+    handle = lib()
+    rc = getattr(handle, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        msg = handle.kmd_error_string(rc).decode()
+        raise RuntimeError(f"{entry}: CUDA error {rc} ({msg})")
+    _launches.add(kernel)
+
+
+def ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def require_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

@@ -1,0 +1,269 @@
+"""k-mer codec and counting on the device (port of kmdiff_tpu/ops/codec.py).
+
+Keys. The JAX package carries a k-mer as u32 lanes (hi, lo) sorted
+lexicographically. Here a k-mer (k <= 32, one u64 word in the
+core/kmer.py::pack_codes layout) is one int64 key: the word XORed with
+1<<63, so signed int64 order equals the unsigned word order and
+``torch.sort`` sorts keys as the lanes sort. The all-ones word (XORed:
+INT64_MAX, ``SENTINEL``) marks invalid windows; no canonical k-mer equals
+it, and it sorts last.
+
+Kernels, each with its plain PyTorch twin in this module (the wrapper runs
+the twin for a CPU tensor and the CUDA kernel for a CUDA tensor):
+
+  K-EXT canonical_kmers   codes [N] u8 -> keys [N-k+1] int64
+  K-RUN run_flags         sorted keys -> run-start flags, valid-row count
+        run_lengths       run starts -> run lengths
+        run_group_sums    run starts + permuted packed counts -> [U, 2]
+                          control/case sums
+  K-CMP compact           mask (+ int64 payload) -> ascending set indices
+                          (+ gathered payload)
+
+``sort_rle`` and ``fused_count`` chain them into the counting program
+(sort_rle_core / fused_count_kernel in the JAX package). The sort itself is
+``torch.sort`` on int64 keys, as the JAX package leaves it to XLA's sort.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from kmdiff_tpu_torch import kernels
+
+#: sentinel code for invalid bases and read separators (codes are 0..3)
+INVALID = np.uint8(0xFF)
+#: sorted-key sentinel (the all-ones word with its top bit flipped)
+SENTINEL = torch.iinfo(torch.int64).max
+#: 1<<63 as an int64 (the order-preserving flip between u64 words and keys)
+_SIGN = torch.iinfo(torch.int64).min
+MAX_K = 32
+
+
+# -- host helpers --------------------------------------------------------------
+
+def encode_ascii_block(seq_bytes: np.ndarray) -> np.ndarray:
+    """ascii -> codes with INVALID for non-ACGT."""
+    from kmdiff_tpu.core.kmer import encode_bases
+
+    codes, valid = encode_bases(seq_bytes)
+    return np.where(valid, codes, INVALID)
+
+
+def words_to_keys(kmers: np.ndarray) -> np.ndarray:
+    """[n, 1] u64 words -> [n] int64 sort keys."""
+    if kmers.ndim != 2 or kmers.shape[1] != 1:
+        raise NotImplementedError(
+            "int64 keys hold one word (k <= 32); multi-word k-mers are "
+            "ROADMAP.md port queue item 2 (k > 32)"
+        )
+    return (kmers[:, 0] ^ np.uint64(1 << 63)).view(np.int64)
+
+
+def keys_to_words(keys: np.ndarray) -> np.ndarray:
+    """[n] int64 sort keys -> [n, 1] u64 words."""
+    return (np.asarray(keys, np.int64).view(np.uint64)
+            ^ np.uint64(1 << 63)).reshape(-1, 1)
+
+
+# -- K-EXT ---------------------------------------------------------------------
+
+def canonical_kmers_plain(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """All k-windows as canonical int64 keys, as a k-step ladder of
+    shifted ORs (the JAX extraction's form); SENTINEL where the window
+    holds an INVALID code."""
+    N = codes.numel()
+    W = N - k + 1
+    if W <= 0:
+        return torch.empty(0, dtype=torch.int64, device=codes.device)
+    bad = codes == int(INVALID)
+    cum = torch.zeros(N + 1, dtype=torch.int64, device=codes.device)
+    cum[1:] = torch.cumsum(bad.to(torch.int64), 0)
+    ok = (cum[k:] - cum[:-k]) == 0
+    base = torch.where(bad, 0, codes.to(torch.int64) & 3)
+    fwd = torch.zeros(W, dtype=torch.int64, device=codes.device)
+    rc = torch.zeros(W, dtype=torch.int64, device=codes.device)
+    for j in range(k):
+        cj = base[j : j + W]
+        fwd |= cj << (2 * (k - 1 - j))
+        rc |= (cj ^ 2) << (2 * j)
+    canon = torch.minimum(fwd ^ _SIGN, rc ^ _SIGN)  # unsigned min
+    return torch.where(ok, canon, SENTINEL)
+
+
+def canonical_kmers(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """K-EXT: codes [N] u8 -> canonical keys [N-k+1] int64."""
+    if not 1 <= k <= MAX_K:
+        raise NotImplementedError(
+            f"k={k}: the port's keys cover 1 <= k <= 32; k > 32 is "
+            "ROADMAP.md port queue item 2"
+        )
+    if codes.device.type == "cpu":
+        return canonical_kmers_plain(codes, k)
+    kernels.require_cuda_tensor("canonical_kmers codes", codes, torch.uint8)
+    N = codes.numel()
+    W = max(N - k + 1, 0)
+    keys = torch.empty(W, dtype=torch.int64, device=codes.device)
+    if W:
+        with torch.cuda.device(codes.device):
+            kernels.launch("canonical_kmers", "kmd_canonical_kmers",
+                           codes.data_ptr(), N, k, keys.data_ptr())
+    return keys
+
+
+# -- K-RUN ---------------------------------------------------------------------
+
+def run_flags_plain(keys: torch.Tensor):
+    valid = keys != SENTINEL
+    flags = valid.clone()
+    flags[1:] &= keys[1:] != keys[:-1]
+    n_valid = valid.sum(dtype=torch.int64).reshape(1)
+    return flags, n_valid
+
+
+def run_flags(keys: torch.Tensor):
+    """K-RUN: sorted keys [N] -> (flags [N] bool, set where a run of
+    equal non-sentinel keys starts; n_valid [1] int64, the rows before
+    the sentinel tail). Both stay on the device."""
+    if keys.device.type == "cpu":
+        return run_flags_plain(keys)
+    kernels.require_cuda_tensor("run_flags keys", keys, torch.int64)
+    N = keys.numel()
+    flags = torch.empty(N, dtype=torch.bool, device=keys.device)
+    n_valid = torch.zeros(1, dtype=torch.int64, device=keys.device)
+    if N:
+        with torch.cuda.device(keys.device):
+            kernels.launch("run_bounds", "kmd_run_flags", keys.data_ptr(), N,
+                           flags.data_ptr(), n_valid.data_ptr())
+    return flags, n_valid
+
+
+def _run_ends(starts: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    return torch.cat([starts[1:], n_valid])
+
+
+def run_lengths_plain(starts: torch.Tensor, n_valid: torch.Tensor):
+    return (_run_ends(starts, n_valid) - starts).to(torch.int32)
+
+
+def run_lengths(starts: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """K-RUN: ascending run starts [U] + n_valid -> run lengths [U] int32
+    (each the gap to the next start; the last run ends at n_valid)."""
+    if starts.device.type == "cpu":
+        return run_lengths_plain(starts, n_valid)
+    kernels.require_cuda_tensor("run_lengths starts", starts, torch.int64)
+    kernels.require_cuda_tensor("run_lengths n_valid", n_valid, torch.int64)
+    U = starts.numel()
+    lengths = torch.empty(U, dtype=torch.int32, device=starts.device)
+    if U:
+        with torch.cuda.device(starts.device):
+            kernels.launch("run_bounds", "kmd_run_lengths", starts.data_ptr(),
+                           U, n_valid.data_ptr(), lengths.data_ptr())
+    return lengths
+
+
+def _unpack_ctrl(count: torch.Tensor):
+    """Packed counts -> (is_control, value) as int64, for both packings
+    (ops.merge_dev.build_triples_packed)."""
+    c = count.to(torch.int64)
+    if count.dtype == torch.int16:
+        u = c & 0xFFFF
+        return (u & 0x8000) != 0, u & 0x7FFF
+    if count.dtype == torch.int32:
+        return c < 0, c & 0x7FFFFFFF
+    raise TypeError(f"packed counts must be int16 or int32, got {count.dtype}")
+
+
+def run_group_sums_plain(starts, n_valid, perm, count):
+    ctrl, v = _unpack_ctrl(count[perm])
+    ends = _run_ends(starts, n_valid)
+    sums = []
+    for col in (torch.where(ctrl, v, 0), torch.where(ctrl, 0, v)):
+        cs = torch.zeros(col.numel() + 1, dtype=torch.int64, device=col.device)
+        cs[1:] = torch.cumsum(col, 0)
+        sums.append(cs[ends] - cs[starts])
+    return torch.stack(sums, 1).to(torch.int32)
+
+
+def run_group_sums(starts: torch.Tensor, n_valid: torch.Tensor,
+                   perm: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """K-RUN: per run, the control and case sums of the packed counts of
+    its rows (row r of the sorted order is count[perm[r]]) -> [U, 2]
+    int32, controls in column 0."""
+    if starts.device.type == "cpu":
+        return run_group_sums_plain(starts, n_valid, perm, count)
+    kernels.require_cuda_tensor("run_group_sums starts", starts, torch.int64)
+    kernels.require_cuda_tensor("run_group_sums n_valid", n_valid, torch.int64)
+    kernels.require_cuda_tensor("run_group_sums perm", perm, torch.int64)
+    if count.dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"packed counts must be int16 or int32, got {count.dtype}")
+    kernels.require_cuda_tensor("run_group_sums count", count, count.dtype)
+    U = starts.numel()
+    sums = torch.empty((U, 2), dtype=torch.int32, device=starts.device)
+    if U:
+        with torch.cuda.device(starts.device):
+            kernels.launch(
+                "run_bounds", "kmd_run_group_sums", starts.data_ptr(), U,
+                n_valid.data_ptr(), perm.data_ptr(), count.data_ptr(),
+                count.element_size(), sums.data_ptr(),
+            )
+    return sums
+
+
+# -- K-CMP ---------------------------------------------------------------------
+
+def compact_plain(mask: torch.Tensor, payload: torch.Tensor | None = None):
+    idx = torch.nonzero(mask).flatten()
+    return idx, (payload[idx] if payload is not None else None)
+
+
+def compact(mask: torch.Tensor, payload: torch.Tensor | None = None):
+    """K-CMP: mask [N] bool -> (ascending indices of the set rows [n]
+    int64, payload[indices] or None). n is exact: the output is sized by
+    a first pass, with no budget and no retry."""
+    if mask.device.type == "cpu":
+        return compact_plain(mask, payload)
+    kernels.require_cuda_tensor("compact mask", mask, torch.bool)
+    N = mask.numel()
+    if payload is not None:
+        kernels.require_cuda_tensor("compact payload", payload, torch.int64)
+        if payload.numel() != N:
+            raise ValueError(f"compact: payload has {payload.numel()} rows, "
+                             f"mask has {N}")
+    dev = mask.device
+    tile = kernels.lib().kmd_compact_tile_rows()
+    n_tiles = -(-N // tile)
+    offsets = torch.empty(n_tiles + 1, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        kernels.launch("compact", "kmd_compact_offsets", mask.data_ptr(), N,
+                       offsets.data_ptr())
+        total = int(offsets[n_tiles])
+        idx = torch.empty(total, dtype=torch.int64, device=dev)
+        out = (torch.empty(total, dtype=torch.int64, device=dev)
+               if payload is not None else None)
+        if total:
+            kernels.launch(
+                "compact", "kmd_compact_scatter", mask.data_ptr(), N,
+                offsets.data_ptr(), kernels.ptr(payload), idx.data_ptr(),
+                kernels.ptr(out),
+            )
+    return idx, out
+
+
+# -- counting ------------------------------------------------------------------
+
+def sort_rle(keys: torch.Tensor):
+    """Sort keys and run-length encode them (the JAX package's
+    sort_rle_core without weights): -> (distinct keys [U] ascending, counts
+    [U] int32). Sentinel keys are dropped."""
+    keys_s = torch.sort(keys).values
+    flags, n_valid = run_flags(keys_s)
+    starts, run_keys = compact(flags, keys_s)
+    return run_keys, run_lengths(starts, n_valid)
+
+
+def fused_count(codes: torch.Tensor, k: int):
+    """One code chunk -> its distinct canonical k-mer keys and counts
+    (the JAX package's fused_count_kernel): K-EXT, torch.sort, K-RUN and
+    K-CMP on the chunk's device."""
+    return sort_rle(canonical_kmers(codes, k))

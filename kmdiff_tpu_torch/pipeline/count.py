@@ -1,0 +1,256 @@
+"""k-mer counting: reads -> kmtricks-compatible run directory (port of
+kmdiff_tpu/pipeline/count.py, single device, k <= 32).
+
+Per sample:
+
+  FASTA/FASTQ(.gz) -> 2-bit codes (files joined by one INVALID separator)
+  -> chunks of <= SORT_ROWS windows with k-1 codes of overlap -> per chunk,
+  on the device: canonical keys (K-EXT), torch.sort, run starts and
+  lengths (K-RUN, K-CMP) -> distinct keys and counts back to the host ->
+  native k-way merge of the chunks -> host partition ids and a stable
+  regroup -> abundance histogram (before hard-min) -> hard-min -> sorted
+  per-partition count files (counts/partition_P/<id>.kmer.lz4).
+
+The run directory is byte-identical to the JAX package's.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import os
+import shutil
+import time
+
+import numpy as np
+import torch
+
+from kmdiff_tpu.cmd.options import CountOptions
+from kmdiff_tpu.io.kmtricks import (
+    Fof,
+    count_dtype_for,
+    hist_from_counts,
+    write_hist,
+    write_kmer_file,
+)
+from kmdiff_tpu.utils.exceptions import InputError
+from kmdiff_tpu.utils.logging import logger
+from kmdiff_tpu_torch.ops.codec import INVALID, MAX_K, fused_count, keys_to_words
+
+#: windows per device chunk. A chunk's int64 keys, their sorted copy and
+#: the sort's scratch take ~32 bytes a window, so 2^24 windows need ~0.5 GB:
+#: a typical bacterial sample counts in one chunk.
+SORT_ROWS = (1 << 24) - 128
+
+_HASH_SEED = np.uint32(0x9E3779B9)
+
+
+def _avalanche_np(h: np.ndarray) -> np.ndarray:
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(0x85EBCA6B)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(0xC2B2AE35)
+    h = h ^ (h >> np.uint32(16))
+    return h
+
+
+def host_partition_ids(kmers: np.ndarray, nb_partitions: int) -> np.ndarray:
+    """k-mer -> partition: a murmur3 fmix32 chain over the u32 halves of
+    each word, mod P (the JAX package's partition hash)."""
+    with np.errstate(over="ignore"):
+        h = np.full(len(kmers), _HASH_SEED, dtype=np.uint32)
+        for w in range(kmers.shape[1]):
+            hi = (kmers[:, w] >> np.uint64(32)).astype(np.uint32)
+            lo = (kmers[:, w] & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+            h = _avalanche_np(hi ^ h)
+            h = _avalanche_np(lo ^ h)
+    return h % np.uint32(nb_partitions)
+
+
+def _host_code_chunks(all_codes: list[np.ndarray], k: int,
+                      sort_rows: int) -> list[np.ndarray]:
+    """Join per-file code arrays with one INVALID separator (no window
+    spans two files) and cut them into chunks of <= sort_rows windows with
+    k-1 codes of overlap, so every window lies in exactly one chunk. No
+    padding: the device takes any length."""
+    sep = np.full(1, INVALID, dtype=np.uint8)
+    parts = []
+    for c in all_codes:
+        if parts:
+            parts.append(sep)
+        parts.append(c)
+    if not parts:
+        return []
+    codes = parts[0] if len(parts) == 1 else np.concatenate(parts)
+    if len(codes) < k:
+        return []
+    return [codes[s : s + sort_rows + k - 1]
+            for s in range(0, len(codes) - k + 1, sort_rows)]
+
+
+def _merge_streams(streams):
+    """Merge k-mer-sorted (kmers, counts) streams, summing the counts of
+    equal k-mers (native k-way merge, 64 streams a level; numpy
+    sort-reduce where the native library is missing)."""
+    try:
+        from kmdiff_tpu.native import merge_counted_streams
+    except ImportError:
+        merge_counted_streams = None
+    if merge_counted_streams is not None:
+        while len(streams) > 64:
+            streams = [
+                merge_counted_streams(
+                    [s[0] for s in streams[i : i + 64]],
+                    [s[1] for s in streams[i : i + 64]],
+                )
+                for i in range(0, len(streams), 64)
+            ]
+        return merge_counted_streams(
+            [s[0] for s in streams], [s[1] for s in streams]
+        )
+    kmers = np.concatenate([s[0] for s in streams])
+    counts = np.concatenate([s[1] for s in streams])
+    order = np.lexsort(tuple(kmers[:, w]
+                             for w in range(kmers.shape[1] - 1, -1, -1)))
+    kmers, counts = kmers[order], counts[order]
+    is_start = np.ones(len(kmers), dtype=bool)
+    is_start[1:] = np.any(kmers[1:] != kmers[:-1], axis=1)
+    starts = np.flatnonzero(is_start)
+    summed = np.add.reduceat(counts.astype(np.uint64), starts).astype(np.uint32)
+    return kmers[starts], summed
+
+
+def _regroup_by_partition(kmers, counts, nb_partitions):
+    """Partition ids from the fetched k-mers, then a STABLE regroup by id:
+    stability keeps each partition's k-mers sorted, so the output is sorted
+    by (partition, k-mer)."""
+    parts = host_partition_ids(kmers, nb_partitions)
+    try:
+        from kmdiff_tpu.native import partition_regroup
+
+        return partition_regroup(parts, kmers, counts, nb_partitions)
+    except ImportError:
+        pass
+    order = np.argsort(parts, kind="stable")
+    return kmers[order], parts[order], counts[order]
+
+
+def count_sample_device(all_codes: list[np.ndarray], k: int,
+                        nb_partitions: int, device: torch.device):
+    """Count one sample's code arrays on `device`. Returns (kmers [U, 1]
+    u64 sorted by (part, kmer), parts [U] u32, counts [U] u32)."""
+    chunks = _host_code_chunks(all_codes, k, SORT_ROWS)
+    if not chunks:
+        return (np.zeros((0, 1), np.uint64), np.zeros(0, np.uint32),
+                np.zeros(0, np.uint32))
+    streams = []
+    for chunk in chunks:
+        codes = torch.from_numpy(chunk).to(device)
+        keys, counts = fused_count(codes, k)
+        streams.append((keys_to_words(keys.cpu().numpy()),
+                        counts.cpu().numpy().view(np.uint32)))
+    kmers, counts_h = streams[0] if len(streams) == 1 else _merge_streams(streams)
+    return _regroup_by_partition(kmers, counts_h, nb_partitions)
+
+
+def count_sample(paths: list[str], k: int, nb_partitions: int,
+                 device: torch.device):
+    """Count one sample's distinct canonical k-mers across its read files:
+    (kmers sorted by (part, kmer), parts, counts), before hard-min."""
+    from kmdiff_tpu_torch.io.fasta import flat_codes
+
+    if k > MAX_K:
+        raise NotImplementedError(
+            f"k={k}: the port counts k <= 32; k > 32 is ROADMAP.md port "
+            "queue item 2"
+        )
+    all_codes = [c for c in (flat_codes(p) for p in paths) if len(c)]
+    return count_sample_device(all_codes, k, nb_partitions, device)
+
+
+def write_sample_count_files(
+    run_dir: str, entry_id: str, sample_idx: int, kmer_size: int,
+    nb_partitions: int, kmers: np.ndarray, parts: np.ndarray,
+    counts: np.ndarray,
+) -> None:
+    """One sample's per-partition .kmer.lz4 count files (after hard-min,
+    sorted by (part, kmer))."""
+    cbytes = count_dtype_for(int(counts.max()) if len(counts) else 1)().itemsize
+    bounds = np.searchsorted(parts, np.arange(nb_partitions + 1))
+    for p in range(nb_partitions):
+        lo_i, hi_i = bounds[p], bounds[p + 1]
+        write_kmer_file(
+            os.path.join(
+                run_dir, "counts", f"partition_{p}", f"{entry_id}.kmer.lz4"
+            ),
+            kmers[lo_i:hi_i],
+            counts[lo_i:hi_i],
+            kmer_size,
+            sample_idx=sample_idx,
+            partition=p,
+            count_bytes=cbytes,
+        )
+
+
+def run_count(opt: CountOptions, device: torch.device) -> None:
+    """Build the run directory (reference: kmtricks pipeline ... --until
+    count --hist). As in the reference's count stage, --recurrence-min is
+    accepted but not applied."""
+    fof = Fof.parse(opt.fof)
+    if not fof.entries:
+        raise InputError(f"{opt.fof}: empty fof")
+    fof_dir = os.path.dirname(os.path.abspath(opt.fof))
+
+    nb_partitions = opt.nb_partitions or 4
+    run_dir = opt.directory
+    os.makedirs(os.path.join(run_dir, "histograms"), exist_ok=True)
+    for p in range(nb_partitions):
+        os.makedirs(
+            os.path.join(run_dir, "counts", f"partition_{p}"), exist_ok=True
+        )
+    shutil.copyfile(opt.fof, os.path.join(run_dir, "kmtricks.fof"))
+
+    def one_sample(i: int) -> int:
+        entry = fof.entries[i]
+        paths = [
+            p if os.path.isabs(p) else os.path.join(fof_dir, p)
+            for p in entry.paths
+        ]
+        t0 = time.perf_counter()
+        kmers, parts, counts = count_sample(paths, opt.kmer_size,
+                                            nb_partitions, device)
+        t_count = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        # histogram BEFORE hard-min: totals subtract low-abundance mass
+        # downstream exactly like the reference
+        hist = hist_from_counts(counts, i, opt.kmer_size)
+        write_hist(
+            os.path.join(run_dir, "histograms", f"{entry.id}.hist"), hist
+        )
+
+        hard_min = entry.ab_min or opt.hard_min
+        if hard_min > 1:
+            keep = counts >= hard_min
+            kmers, parts, counts_f = kmers[keep], parts[keep], counts[keep]
+        else:
+            counts_f = counts
+        write_sample_count_files(
+            run_dir, entry.id, i, opt.kmer_size, nb_partitions,
+            kmers, parts, counts_f,
+        )
+        logger.info(
+            "[%s] %d distinct k-mers (%d after hard-min=%d; count+fetch "
+            "%.1fs, hist+spill %.1fs).",
+            entry.id, len(counts), len(counts_f), hard_min,
+            t_count, time.perf_counter() - t0,
+        )
+        return len(counts_f)
+
+    # samples on host threads: file parsing and spills overlap, the
+    # device work queues on one stream
+    with cf.ThreadPoolExecutor(max(1, opt.nb_threads)) as pool:
+        list(pool.map(one_sample, range(len(fof.entries))))
+    logger.info(
+        "Counted %d samples, %d partitions, k=%d.",
+        len(fof.entries), nb_partitions, opt.kmer_size,
+    )

@@ -1,0 +1,346 @@
+"""Partition merge + differential test (port of kmdiff_tpu/pipeline/merge.py:
+the Poisson model's device merge, the matrix path's block filter, and the
+partition thread pool).
+
+* Count files (the default input): a partition's S sorted per-sample
+  streams are pre-summed on the host into one control and one case stream
+  (native k-way merge), shipped to the device as int64 keys plus packed
+  counts, and merged and filtered there (ops.merge_dev.merge_lrt).
+  Partitions above MAX_DEVICE_ROWS stream through in key-range chunks;
+  each chunk is complete because every stream is sorted.
+* Prebuilt count matrices: [B, S] row blocks go through K-LRT
+  (ops.lrt.run_filter) in BLOCK_ROWS tiles.
+
+Either way the small survivor set is rescored in exact f64 on the host
+(kmdiff_tpu.core.model), which reproduces kmdiff's p-values.
+
+Not ported yet (NotImplementedError): custom models, --save-sk, popstrat's
+count rows and geno sampling, and cohorts whose k-mer mass reaches 2^31.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import dataclasses
+import threading
+import time
+
+import numpy as np
+import torch
+
+from kmdiff_tpu.core.model import IModel, PoissonLikelihood, Significance
+from kmdiff_tpu.io.accumulator import IAccumulator, KmerSignBlock
+from kmdiff_tpu.io.kmtricks import read_kmer_file
+from kmdiff_tpu.utils.logging import logger
+from kmdiff_tpu_torch.ops.codec import keys_to_words
+from kmdiff_tpu_torch.ops.lrt import LrtParams, run_filter
+
+#: matrix-path tile height
+BLOCK_ROWS = 1 << 17
+
+#: max rows per device merge; larger partitions stream through in
+#: key-range chunks
+MAX_DEVICE_ROWS = 1 << 23
+
+
+@dataclasses.dataclass
+class PartitionResult:
+    partition: int
+    total_kmers: int
+    nb_sign: int
+    sign_controls: int
+    sign_cases: int
+
+
+class _Phases(threading.local):
+    """Per-thread stage times (decode / groupsum / build / device), logged
+    at debug level when a partition ends."""
+
+    def __init__(self):
+        self.t = {}
+
+    def add(self, key, dt):
+        self.t[key] = self.t.get(key, 0.0) + dt
+
+    def drain(self):
+        out, self.t = self.t, {}
+        return out
+
+
+class PartitionProcessor:
+    """Runs one partition: load -> merge + filter on `device` -> exact
+    rescore -> accumulate (reference observer: merge.hpp:68-103)."""
+
+    def __init__(self, model: IModel, nb_controls: int, nb_cases: int,
+                 threshold: float, device: torch.device):
+        if not isinstance(model, PoissonLikelihood):
+            raise NotImplementedError(
+                "custom models are not ported to kmdiff_tpu_torch yet "
+                "(ROADMAP.md port queue item 6: plugins)"
+            )
+        self.model = model
+        self.nb_controls = nb_controls
+        self.nb_cases = nb_cases
+        self.threshold = threshold
+        self.device = device
+        self.phases = _Phases()
+        self.params = LrtParams(nb_controls, nb_cases, model.sum_controls,
+                                model.sum_cases, threshold)
+        if self.params.wide_sums:
+            raise NotImplementedError(
+                "cohorts whose k-mer mass reaches 2^31 need the wide sums, "
+                "not ported yet (ROADMAP.md port queue item 3)"
+            )
+
+    # -- block scoring (matrix path) -----------------------------------------
+
+    def _score_block(self, kmers: np.ndarray, counts: np.ndarray):
+        """Score [B, S] rows through K-LRT in BLOCK_ROWS tiles, rescore the
+        kept rows in f64; returns (survivor KmerSignBlock, survivor row
+        indices, control and case tallies)."""
+        keep = np.zeros(len(counts), dtype=bool)
+        s_c = np.zeros(len(counts), dtype=np.int64)
+        s_k = np.zeros(len(counts), dtype=np.int64)
+        for lo in range(0, len(counts), BLOCK_ROWS):
+            hi = min(len(counts), lo + BLOCK_ROWS)
+            k, _lr, sc, sk = run_filter(self.params, counts[lo:hi], self.device)
+            keep[lo:hi], s_c[lo:hi], s_k[lo:hi] = k, sc, sk
+        idx = np.nonzero(keep)[0]
+        p, sg, mc, mk = self.model.process_sums(s_c[idx], s_k[idx])
+        final = p <= self.threshold
+        idx = idx[final]
+        block = KmerSignBlock(
+            kmers[idx],
+            np.asarray(p[final], dtype=np.float64),
+            np.asarray(sg[final], dtype=np.int8),
+            np.asarray(mc[final], dtype=np.float64),
+            np.asarray(mk[final], dtype=np.float64),
+            None,
+        )
+        n_ctrl = int(np.sum(block.signs == int(Significance.CONTROL)))
+        return block, idx, n_ctrl, len(block) - n_ctrl
+
+    # -- partition entry points ----------------------------------------------
+
+    def process_files(self, partition: int, paths: list[str],
+                      acc: IAccumulator) -> PartitionResult:
+        t0 = time.perf_counter()
+        kmers_list, counts_list = [], []
+        for path in paths:
+            info, kmers, counts = read_kmer_file(path)
+            if info.kmer_size > 32:
+                raise NotImplementedError(
+                    f"k={info.kmer_size}: the port merges k <= 32; k > 32 "
+                    "is ROADMAP.md port queue item 2"
+                )
+            kmers_list.append(kmers)
+            counts_list.append(counts)
+        self.phases.add("decode", time.perf_counter() - t0)
+        res = self._process_device_merge(partition, kmers_list, counts_list,
+                                         acc)
+        self._log_phases(partition)
+        return res
+
+    def process_matrix(self, partition: int, path: str,
+                       acc: IAccumulator) -> PartitionResult:
+        """Stream a prebuilt count matrix in bounded row blocks (rows are
+        already merged, one distinct k-mer each)."""
+        from kmdiff_tpu.io.kmtricks import open_matrix_stream
+
+        _info, blocks = open_matrix_stream(path)
+        total = nsign = n_ctrl = n_case = 0
+        for kmers, counts in blocks:
+            block, _idx, nc, nk = self._score_block(kmers, counts)
+            acc.push_block(block)
+            total += len(counts)
+            nsign += len(block)
+            n_ctrl += nc
+            n_case += nk
+        acc.finish()
+        return PartitionResult(partition, total, nsign, n_ctrl, n_case)
+
+    def _process_device_merge(self, partition, kmers_list, counts_list,
+                              acc) -> PartitionResult:
+        """Pre-sum the groups on the host, then merge on the device, in
+        key-range chunks above MAX_DEVICE_ROWS."""
+        nbc = self.nb_controls
+        if 1 <= nbc < len(kmers_list) and len(kmers_list) > 2:
+            # the test reads only per-GROUP sums (model.hpp:145-146), so the
+            # controls and the cases each merge into one stream first
+            # (exact integer sums): the device then sorts ~2 rows per
+            # distinct k-mer instead of one per carrying sample
+            from kmdiff_tpu_torch.pipeline.count import _merge_streams
+
+            t0 = time.perf_counter()
+            ctrl = _merge_streams(list(zip(kmers_list[:nbc], counts_list[:nbc])))
+            case = _merge_streams(list(zip(kmers_list[nbc:], counts_list[nbc:])))
+            kmers_list = [ctrl[0], case[0]]
+            counts_list = [ctrl[1], case[1]]
+            nbc = 1
+            self.phases.add("groupsum", time.perf_counter() - t0)
+        if sum(len(k) for k in kmers_list) > MAX_DEVICE_ROWS:
+            return self._process_device_merge_chunked(
+                partition, kmers_list, counts_list, acc, nbc
+            )
+        return self._device_merge_chunk(partition, kmers_list, counts_list,
+                                        acc, nbc, finish=True)
+
+    def _process_device_merge_chunked(self, partition, kmers_list,
+                                      counts_list, acc, nbc) -> PartitionResult:
+        """Split the partition at common k-mer boundaries into chunks of
+        about 7/8 of MAX_DEVICE_ROWS and merge them in key order. Quantile
+        splitters are approximate, so the chunk count doubles on overshoot
+        (bounded retries; an over-budget chunk is still merged whole)."""
+        from kmdiff_tpu_torch.ops.merge_dev import quantile_key_split
+
+        N_real = sum(len(k) for k in kmers_list)
+        n_chunks = max(2, -(-N_real // max(1, (MAX_DEVICE_ROWS * 7) // 8)))
+        bounds, chunk_slices, _R = quantile_key_split(
+            kmers_list, n_chunks, lambda _r: MAX_DEVICE_ROWS,
+            grow=True, attempts=4, best_effort=True,
+        )
+        results = []
+        for per_sample in chunk_slices:
+            sub_k = [km[a:b] for (a, b), km in zip(per_sample, kmers_list)]
+            sub_c = [ct[a:b] for (a, b), ct in zip(per_sample, counts_list)]
+            results.append(self._device_merge_chunk(
+                partition, sub_k, sub_c, acc, nbc, finish=False
+            ))
+        acc.finish()
+        return PartitionResult(
+            partition,
+            sum(r.total_kmers for r in results),
+            sum(r.nb_sign for r in results),
+            sum(r.sign_controls for r in results),
+            sum(r.sign_cases for r in results),
+        )
+
+    def _device_merge_chunk(self, partition, kmers_list, counts_list, acc,
+                            nbc, finish=True) -> PartitionResult:
+        n_distinct, hit_kmers, s_c, s_k = self._dispatch_single(
+            kmers_list, counts_list, nbc
+        )
+        p, sg, mc, mk = self.model.process_sums(s_c, s_k)
+        final = p <= self.threshold
+        block = KmerSignBlock(
+            hit_kmers[final],
+            np.asarray(p[final], dtype=np.float64),
+            np.asarray(sg[final], dtype=np.int8),
+            np.asarray(mc[final], dtype=np.float64),
+            np.asarray(mk[final], dtype=np.float64),
+            None,
+        )
+        acc.push_block(block)
+        if finish:
+            acc.finish()
+        n_ctrl = int(np.sum(block.signs == int(Significance.CONTROL)))
+        return PartitionResult(partition, n_distinct, len(block), n_ctrl,
+                               len(block) - n_ctrl)
+
+    def _log_phases(self, partition: int) -> None:
+        t = self.phases.drain()
+        if t:
+            logger.debug(
+                "partition %d phases: %s", partition,
+                " ".join(f"{k}={v:.2f}s" for k, v in sorted(t.items())),
+            )
+
+    # -- device dispatch -----------------------------------------------------
+
+    @staticmethod
+    def _unpack_blob(hit_keys: torch.Tensor, hit_sums: torch.Tensor):
+        """Survivors on the device -> (kmers [H, 1] u64, s_c, s_k exact
+        int64) on the host."""
+        sums = hit_sums.cpu().numpy().astype(np.int64)
+        return keys_to_words(hit_keys.cpu().numpy()), sums[:, 0], sums[:, 1]
+
+    def _dispatch_single(self, kmers_list, counts_list, nbc):
+        """Build one chunk's keys and packed counts, ship them, merge and
+        filter on the device; returns (n_distinct, survivor kmers, s_c,
+        s_k)."""
+        from kmdiff_tpu_torch.ops.merge_dev import (
+            build_triples_packed,
+            merge_lrt,
+            pack16_ok,
+        )
+
+        t0 = time.perf_counter()
+        keys, count, _N = build_triples_packed(
+            kmers_list, counts_list, nbc, pack16=pack16_ok(counts_list)
+        )
+        self.phases.add("build", time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        n_distinct, hit_keys, hit_sums = merge_lrt(
+            torch.from_numpy(keys).to(self.device),
+            torch.from_numpy(count).to(self.device),
+            self.params.ratio_c, self.params.ratio_k, self.params.lr_min,
+        )
+        out = (n_distinct, *self._unpack_blob(hit_keys, hit_sums))
+        self.phases.add("device", time.perf_counter() - t0)
+        return out
+
+
+class GlobalMerge:
+    """All-partition merge (reference: merge.hpp:209-432 global_merge):
+    partitions run on a host thread pool, so file decoding and the host
+    pre-sum overlap the device work, which queues on one stream."""
+
+    def __init__(self, processor: PartitionProcessor,
+                 accumulators: list[IAccumulator], nb_threads: int = 4,
+                 progress=None):
+        self.processor = processor
+        self.accs = accumulators
+        self.nb_threads = max(1, nb_threads)
+        self.progress = progress
+        self.results: list[PartitionResult] = []
+
+    def _run(self, jobs) -> list[PartitionResult]:
+        results: list[PartitionResult | None] = [None] * len(jobs)
+        lock = threading.Lock()
+
+        def task(i, fn):
+            r = fn()
+            with lock:
+                results[i] = r
+                if self.progress is not None:
+                    self.progress.tick()
+            return r
+
+        if self.nb_threads == 1:
+            for i, fn in enumerate(jobs):
+                task(i, fn)
+        else:
+            with cf.ThreadPoolExecutor(self.nb_threads) as pool:
+                futs = [pool.submit(task, i, fn) for i, fn in enumerate(jobs)]
+                for f in futs:
+                    f.result()  # re-raise worker exceptions
+        self.results = results  # type: ignore[assignment]
+        return self.results
+
+    def merge_partitions(self, partition_paths: list[list[str]]) -> int:
+        self._run([
+            (lambda p=p: self.processor.process_files(
+                p, partition_paths[p], self.accs[p]))
+            for p in range(len(partition_paths))
+        ])
+        return self.total_kmers()
+
+    def merge_matrices(self, matrix_paths: list[str]) -> int:
+        self._run([
+            (lambda p=p: self.processor.process_matrix(
+                p, matrix_paths[p], self.accs[p]))
+            for p in range(len(matrix_paths))
+        ])
+        return self.total_kmers()
+
+    def total_kmers(self) -> int:
+        return sum(r.total_kmers for r in self.results)
+
+    def nb_sign(self) -> int:
+        return sum(r.nb_sign for r in self.results)
+
+    def signs(self) -> tuple[int, int]:
+        return (
+            sum(r.sign_controls for r in self.results),
+            sum(r.sign_cases for r in self.results),
+        )

@@ -1,0 +1,117 @@
+"""The four CUDA kernels of kmdiff_tpu_torch against their plain PyTorch
+twins on the card, at small shapes with edge cases (empty inputs, ragged
+tails, runs that cross tiles, k=1 and k=32). They need an NVIDIA GPU and
+nvcc, and skip without one; run them on the card with
+
+    python -m pytest -m cuda tests/test_torch_kernels_cuda.py
+
+Integers must be equal. lr within rtol 1e-6 and atol 1e-6: both sides use
+the card's logf on the same f32 operands, without fused multiply-adds.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from kmdiff_tpu_torch import kernels
+from kmdiff_tpu_torch.ops import codec
+from kmdiff_tpu_torch.ops.lrt_kernel import lrt_filter, lrt_filter_plain
+from kmdiff_tpu_torch.ops.merge_dev import build_triples_packed, merge_lrt
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    kernels.lib()
+    return torch.device("cuda", 0)
+
+
+def _eq(a, b):
+    assert a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("B,S,nbc", [(0, 2, 1), (1, 2, 1), (4099, 2, 1),
+                                     (3000, 20, 10), (777, 8, 3)])
+def test_lrt_filter(dev, B, S, nbc):
+    rng = np.random.default_rng(B + S)
+    counts = torch.from_numpy(rng.integers(0, 500, (B, S), dtype=np.int32)).to(dev)
+    before = kernels.launch_counts()["lrt_filter"]
+    out = lrt_filter(counts, nbc, 0.45, 0.55, 5.0)
+    ref = lrt_filter_plain(counts, nbc, 0.45, 0.55, 5.0)
+    assert kernels.launch_counts()["lrt_filter"] == before + (1 if B else 0)
+    _eq(out[2], ref[2])
+    _eq(out[3], ref[3])
+    torch.testing.assert_close(out[1], ref[1], rtol=1e-6, atol=1e-6)
+    _eq(out[0], ref[0])
+
+
+@pytest.mark.parametrize("k", [1, 5, 21, 31, 32])
+@pytest.mark.parametrize("n", [10, 257, 70_001])
+def test_canonical_kmers(dev, k, n):
+    rng = np.random.default_rng(k * n)
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    codes[rng.random(n) < 0.01] = codec.INVALID
+    codes[: min(n, 40)] = 3
+    c = torch.from_numpy(codes).to(dev)
+    _eq(codec.canonical_kmers(c, k), codec.canonical_kmers_plain(c, k))
+
+
+@pytest.mark.parametrize("n", [1, 4096, 4097, 100_003])
+def test_runs_and_compaction(dev, n):
+    rng = np.random.default_rng(n)
+    raw = rng.integers(0, max(2, n // 3), n).astype(np.int64)
+    raw[rng.random(n) < 0.05] = codec.SENTINEL
+    keys = torch.sort(torch.from_numpy(raw).to(dev)).values
+    flags, n_valid = codec.run_flags(keys)
+    flags_p, n_valid_p = codec.run_flags_plain(keys)
+    _eq(flags, flags_p)
+    _eq(n_valid, n_valid_p)
+    starts, run_keys = codec.compact(flags, keys)
+    starts_p, run_keys_p = codec.compact_plain(flags, keys)
+    _eq(starts, starts_p)
+    _eq(run_keys, run_keys_p)
+    _eq(codec.run_lengths(starts, n_valid),
+        codec.run_lengths_plain(starts, n_valid))
+    perm = torch.randperm(n, device=dev)
+    for dtype in (torch.int16, torch.int32):
+        count = torch.from_numpy(rng.integers(-30000, 30000, n)).to(dev, dtype)
+        _eq(codec.run_group_sums(starts, n_valid, perm, count),
+            codec.run_group_sums_plain(starts, n_valid, perm, count))
+
+
+def test_compact_empty_and_full(dev):
+    for mask in (torch.zeros(5000, dtype=torch.bool, device=dev),
+                 torch.ones(5000, dtype=torch.bool, device=dev),
+                 torch.zeros(0, dtype=torch.bool, device=dev)):
+        idx, _ = codec.compact(mask)
+        _eq(idx, codec.compact_plain(mask)[0])
+
+
+def test_merge_lrt_cuda_matches_cpu(dev):
+    rng = np.random.default_rng(1)
+    pool = np.unique(rng.integers(0, 2**62, 20_000, dtype=np.uint64))
+    kmers, counts = [], []
+    for s in range(2):
+        take = np.sort(rng.choice(len(pool), 12_000, replace=False))
+        kmers.append(pool[take].reshape(-1, 1))
+        counts.append(rng.integers(1, 100 if s else 400, 12_000, dtype=np.uint32))
+    keys, count, _ = build_triples_packed(kmers, counts, 1, pack16=True)
+    args = (0.4, 0.6, 3.0)
+    n_gpu, hk_gpu, hs_gpu = merge_lrt(torch.from_numpy(keys).to(dev),
+                                      torch.from_numpy(count).to(dev), *args)
+    n_cpu, hk_cpu, hs_cpu = merge_lrt(torch.from_numpy(keys),
+                                      torch.from_numpy(count), *args)
+    assert n_gpu == n_cpu
+    _eq(hk_gpu, hk_cpu)
+    _eq(hs_gpu, hs_cpu)
+
+
+def test_wrappers_refuse_cpu_only_layouts(dev):
+    with pytest.raises(TypeError):
+        lrt_filter(torch.zeros((4, 2), dtype=torch.int64, device=dev), 1, 0.5, 0.5, 1.0)
+    with pytest.raises(ValueError):
+        codec.compact(torch.ones(4, dtype=torch.bool, device=dev),
+                      torch.zeros(4, dtype=torch.int64))

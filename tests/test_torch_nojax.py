@@ -1,0 +1,72 @@
+"""The port never imports JAX: in a fresh interpreter that refuses and
+records every `jax` import, kmdiff_tpu_torch simulates, counts and diffs a
+tiny cohort on the CPU, and no import of JAX was even attempted (on a
+machine where JAX is installed, an attempt would load it)."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+PORT = pathlib.Path(__file__).resolve().parents[1] / "kmdiff_tpu_torch"
+
+_SCRIPT = textwrap.dedent("""
+    import importlib.abc
+    import os
+    import sys
+
+    attempts = []
+
+    class BlockJax(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib"):
+                attempts.append(name)
+                raise ImportError(f"jax is blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, BlockJax())
+
+    from kmdiff_tpu_torch.cli import main
+
+    root = sys.argv[1]
+    assert main(["popsim", "-o", os.path.join(root, "sim"), "--genome-len",
+                 "4000", "-1", "2", "-2", "2", "--random-seed", "1"],
+                device="cpu") == 0
+    assert main(["count", "--file", os.path.join(root, "sim", "fof.txt"),
+                 "--run-dir", os.path.join(root, "run"), "--kmer-size", "21",
+                 "--threads", "1"], device="cpu") == 0
+    assert main(["diff", "--km-run-dir", os.path.join(root, "run"),
+                 "-1", "2", "-2", "2", "--output-dir", os.path.join(root, "out"),
+                 "--threads", "1"], device="cpu") == 0
+    assert os.path.exists(os.path.join(root, "out", "case_kmers.fasta"))
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib"))
+    assert not loaded, loaded
+    assert not attempts, attempts
+    print("NOJAX_OK")
+""")
+
+
+def test_port_runs_with_jax_blocked(tmp_path):
+    env = dict(os.environ)
+    # without these, kmdiff_tpu/__init__ imports JAX for its compile-cache
+    # set-up unless the port has switched that off
+    env.pop("JAX_PLATFORMS", None)
+    env.pop("KMDIFF_NO_JAX_CACHE", None)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(PORT.parent), env.get("PYTHONPATH", "")]
+    )
+    res = subprocess.run([sys.executable, "-c", _SCRIPT, str(tmp_path)],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "NOJAX_OK" in res.stdout
+
+
+def test_port_sources_never_import_jax():
+    pattern = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.MULTILINE)
+    sources = sorted(PORT.rglob("*.py"))
+    assert len(sources) >= 12
+    for path in sources:
+        assert not pattern.search(path.read_text()), path
