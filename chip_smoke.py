@@ -8,7 +8,9 @@ Run from the root of a checkout, with no arguments:
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds the port's four CUDA kernels from csrc/ with nvcc.
 2. Holds each kernel against its plain PyTorch twin on the card at the
-   main path's shapes and prints both median times (CUDA events).
+   main path's shapes and prints both median times (CUDA events); K-CMP
+   at its dense shape (run starts) and its sparse one (LRT survivors),
+   with its achieved bandwidth and its launches and host syncs a call.
    Integers must be equal; lr within rtol 1e-6 and atol 1e-6; keep equal
    except where the margin-adjusted lr lies within 1e-5*max(1, lr) of
    lr_min.
@@ -179,12 +181,85 @@ def compare_kernels(dev) -> dict:
     out["run_bounds"] = (t_flags + t_len + t_sums,
                          t_flags_p + t_len_p + t_sums_p, 0.0)
 
+    # K-CMP, dense: the run starts above with their keys (codec.py sort_rle,
+    # merge_dev.py merge_lrt); times are whole calls, host read included
     ms = median_ms(lambda: codec.compact(flags, keys_s))
     plain = median_ms(lambda: codec.compact_plain(flags, keys_s))
+    costs, dev_ms = compact_costs(flags, keys_s)
+    floor = n + 24 * len(starts)  # mask read; index write; payload read + write
     print(f"[K-CMP] compact 2^23 rows -> {len(starts)} with payload: kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms")
+          f"{ms:.4f} ms, plain {plain:.4f} ms; {costs}; byte floor {floor} B "
+          f"= {floor / 3.35e9:.4f} ms at 3.35 TB/s; achieved "
+          f"{floor / dev_ms / 1e6:.1f} GB/s over its device time, "
+          f"{floor / ms / 1e6:.1f} GB/s over the call")
     out["compact"] = (ms, plain, 0.0)
+
+    # K-CMP, sparse: the LRT survivors of merge_dev.py merge_lrt, ~0.1% of
+    # 2^22 rows at random, with their keys
+    sparse = torch.from_numpy(rng.random(1 << 22) < 0.001).to(dev)
+    values = torch.from_numpy(
+        rng.integers(-(2**62), 2**62, 1 << 22, dtype=np.int64)).to(dev)
+    hit, hit_keys = codec.compact(sparse, values)
+    hit_p, hit_keys_p = codec.compact_plain(sparse, values)
+    check_equal("compact sparse indices", hit, hit_p)
+    check_equal("compact sparse payload", hit_keys, hit_keys_p)
+    ms = median_ms(lambda: codec.compact(sparse, values))
+    plain = median_ms(lambda: codec.compact_plain(sparse, values))
+    print(f"[K-CMP] compact 2^22 rows -> {len(hit)} (sparse) with payload: "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms; "
+          f"{compact_costs(sparse, values)[0]}")
     return out
+
+
+def device_work(fn, reps: int = 10) -> tuple[float, int]:
+    """Device ms and device operations (kernels, memsets, copies) per call
+    of fn, from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if not spans:
+        raise AssertionError("torch.profiler recorded no device time")
+    return sum(spans) / reps / 1e3, round(len(spans) / reps)
+
+
+def compact_costs(mask, payload) -> tuple[str, float]:
+    """What one codec.compact call costs beside one compact_plain call:
+    entry-point calls, device operations and device time (torch.profiler),
+    host syncs (the plain call's seen by CUDA sync debug mode; K-CMP's one
+    sync is inside its C entry point). Also returns K-CMP's device ms."""
+    import warnings
+
+    import torch
+
+    from kmdiff_tpu_torch import kernels
+    from kmdiff_tpu_torch.ops import codec
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            codec.compact_plain(mask, payload)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n_sync_p = sum("synchroniz" in str(w.message) for w in caught)
+    before = kernels.launch_counts()["compact"]
+    codec.compact(mask, payload)
+    n_launch = kernels.launch_counts()["compact"] - before
+    dev_ms, n_ops = device_work(lambda: codec.compact(mask, payload))
+    dev_ms_p, n_ops_p = device_work(lambda: codec.compact_plain(mask, payload))
+    return (f"a call: {n_launch} entry-point call, {n_ops} device ops in "
+            f"{dev_ms:.4f} ms, 1 host sync; plain: {n_ops_p} device ops in "
+            f"{dev_ms_p:.4f} ms, {n_sync_p} host sync(s)"), dev_ms
 
 
 def _read_fasta(path):

@@ -1,136 +1,194 @@
-// K-CMP: ordered stream compaction.
+// K-CMP: ordered stream compaction in one pass over the mask.
 //
 // Given mask [N] (bool, one byte each) it writes the ascending indices of the
-// set rows, and optionally gathers an int64 payload at those rows, plus the
+// set rows, optionally an int64 payload gathered at those rows, and their
 // count. This is the contract of kmdiff_tpu/ops/merge_dev.py::
 // _compact_indices (jnp.nonzero with a size) and of the compaction sort at
 // kmdiff_tpu/ops/codec.py:435-454, without their TPU forms: no second
-// all-keys sort, no fixed output budget. The count is known before the
-// output is allocated (kmd_compact_offsets, then one 8-byte read by the
-// wrapper), so the JAX package's overflow-retry loop has nothing to do.
+// all-keys sort, no fixed output budget, no overflow retry.
 //
-// Three kernels, each a plain pass:
-//   tile_counts  each block counts the set rows of its 4096-row tile
-//   scan_tiles   one block turns the tile counts into exclusive offsets and
-//                the total (offsets[n_tiles])
-//   scatter      each block recounts its tile and writes its rows at its
-//                offset, in order
-// Warp w of a block owns 512 consecutive rows of the tile and walks them 32
-// at a time: lane l reads row 32s + l, a ballot gives every set lane its
-// rank among the set lanes, so a warp's reads and writes are contiguous.
+// One kernel; a block owns one tile of 8192 rows (512 threads x 16 rows):
+//   1. each thread loads its 16 mask bytes as one 16-byte vector on the
+//      read-only path and turns them into a bitmap of set rows in
+//      registers (byte compare, then popc for its count)
+//   2. a block scan (warp shuffles, then the 16 warp totals) ranks every
+//      thread in the tile; the tile's set rows are staged in order in
+//      shared memory as 16-bit tile offsets, and every thread issues the
+//      payload loads of its first 8 outputs, which need no output offset
+//   3. decoupled look-back for the tile's output offset: the block takes
+//      its tile id from an atomic counter, so it only ever waits on tiles
+//      that running blocks hold and always progresses; it publishes its
+//      count, then warp 0 sums its predecessors' counts back to the
+//      nearest published prefix and publishes its own inclusive prefix.
+//      A status word is 64 bits, the flag in its top two, written with
+//      st.release.gpu and read with ld.acquire.gpu
+//   4. consecutive threads write consecutive outputs, so the index and
+//      payload stores are contiguous; the payload reads follow the set
+//      rows (contiguous in a dense tile, only the set rows in a sparse one)
+// The last tile writes the total straight into page-locked host memory.
+// Tiles start at the 16-byte boundary at or below mask, so a view at any
+// byte offset is read with aligned vector loads; the bytes before row 0 and
+// after row N-1 that these loads take are masked off (each lies in the
+// 16-byte chunk of a real row, so no load leaves the mask's pages).
 //
-// Bound on the H100: device memory. The mask is read twice (2 bytes a row)
-// and a kept row writes 8 bytes (16 with a payload, whose read is a gather
-// of contiguous runs). The single-block scan costs n_tiles/1024 rounds: 2
-// at 2^23 rows. The wrapper's read of the count between the passes is a
-// host round trip; it stays, because the output is sized by it.
+// Scratch: int64 [1 + n_tiles], n_tiles = ceil((N + (mask & 15)) / 8192),
+// zeroed here with cudaMemsetAsync: the tile counter, then one status word
+// per tile. The wrapper allocates the outputs with N rows and calls
+// kmd_compact once: one memset, one kernel and one host sync a call.
+//
+// Bound on the H100: device memory. The floor is one read of the mask (N
+// bytes) plus 8 bytes a kept row for the index, and 16 more with a payload
+// (its read and its write). On an H100 SXM at 700 W the kernel takes ~85 us
+// for 2^23 rows, 98% set, with a payload: ~72% of the card's 3.35 TB/s over
+// that floor (PERF.md).
 #include "kmd_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSteps = 16;
-constexpr int kWarpRows = 32 * kSteps;
-constexpr int kTile = kWarps * kWarpRows;
-constexpr int kScanThreads = 1024;
+constexpr int kRows = 16;                // rows a thread: one 16-byte load
+constexpr int kTile = kThreads * kRows;  // 8192: a tile offset fits 16 bits
+constexpr int kUnroll = 8;               // payload loads in flight a thread
 
-__device__ __forceinline__ long long warp_first_row() {
-  return blockIdx.x * static_cast<long long>(kTile) +
-         static_cast<long long>(threadIdx.x >> 5) * kWarpRows;
+constexpr unsigned long long kAggregate = 1ull << 62;  // tile count published
+constexpr unsigned long long kPrefix = 2ull << 62;     // inclusive prefix published
+constexpr unsigned long long kValue = kAggregate - 1;
+
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-__device__ __forceinline__ bool is_set(const uint8_t* __restrict__ mask,
-                                       long long N, long long i) {
-  return i < N && mask[i] != 0;
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-// Set rows among the warp's 512 rows (the same value in every lane).
-__device__ int warp_count(const uint8_t* __restrict__ mask, long long N) {
-  const long long first = warp_first_row() + (threadIdx.x & 31);
-  int c = 0;
-  for (int s = 0; s < kSteps; ++s) {
-    c += __popc(__ballot_sync(0xffffffffu, is_set(mask, N, first + 32 * s)));
-  }
-  return c;
+// Bit j set where byte j of w is non-zero: the compare leaves 0x01 in each
+// such byte, and the multiply gathers the four bytes' low bits into bits
+// 24-27 without carries.
+__device__ __forceinline__ unsigned byte_bits(unsigned w) {
+  return ((__vcmpne4(w, 0u) & 0x01010101u) * 0x01020408u) >> 24;
 }
 
-__global__ void tile_counts_kernel(const uint8_t* __restrict__ mask, long long N,
-                                   int64_t* __restrict__ offsets) {
-  __shared__ int warp_totals[kWarps];
-  int c = warp_count(mask, N);
-  if ((threadIdx.x & 31) == 0) warp_totals[threadIdx.x >> 5] = c;
+__device__ __forceinline__ unsigned chunk_bits(uint4 v) {
+  return byte_bits(v.x) | byte_bits(v.y) << 4 | byte_bits(v.z) << 8 |
+         byte_bits(v.w) << 12;
+}
+
+// chunks: the mask from its 16-byte boundary; aligned row a is mask row
+// a - lead and is real for lead <= a < end (end = N + lead).
+__global__ void __launch_bounds__(kThreads)
+compact_kernel(const uint4* __restrict__ chunks, long long n_chunks, int lead,
+               long long end, int n_tiles, const int64_t* __restrict__ payload,
+               int64_t* __restrict__ out_idx, int64_t* __restrict__ out_payload,
+               unsigned long long* scratch, long long* n_set) {
+  __shared__ uint16_t rows[kTile];
+  __shared__ int warp_total[kWarps];
+  __shared__ int tile_id;
+  __shared__ long long tile_offset;
+  unsigned long long* status = scratch + 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) tile_id = static_cast<int>(atomicAdd(scratch, 1ull));
   __syncthreads();
+  const int t = tile_id;
+
+  // 1. this thread's 16 rows as a bitmap
+  const long long c = static_cast<long long>(t) * kThreads + threadIdx.x;
+  unsigned bits = c < n_chunks ? chunk_bits(__ldg(chunks + c)) : 0u;
+  const long long a0 = 16 * c;
+  if (a0 < lead) bits &= ~0u << lead;
+  const long long rem = end - a0;
+  if (rem < kRows) bits &= rem > 0 ? (1u << rem) - 1u : 0u;
+
+  // 2. rank in the tile, stage the rows, start the first payload loads
+  const int count = __popc(bits);
+  int incl = count;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  int rank = incl - count;
+  int aggregate = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const int v = warp_total[w];
+    if (w < warp) rank += v;
+    aggregate += v;
+  }
   if (threadIdx.x == 0) {
-    int64_t total = 0;
-    for (int w = 0; w < kWarps; ++w) total += warp_totals[w];
-    offsets[blockIdx.x] = total;
+    store_release(&status[t], (t == 0 ? kPrefix : kAggregate) |
+                                  static_cast<unsigned long long>(aggregate));
   }
-}
-
-// In place: offsets[0, n_tiles) counts -> exclusive prefix sums, and
-// offsets[n_tiles] = the total. One block, n_tiles/1024 rounds.
-__global__ void scan_tiles_kernel(int64_t* __restrict__ offsets, long long n_tiles) {
-  __shared__ int64_t warp_sums[kScanThreads / 32];
-  __shared__ int64_t carry;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry = 0;
+  for (unsigned b = bits; b; b &= b - 1) {
+    rows[rank++] = static_cast<uint16_t>(threadIdx.x * kRows + __ffs(b) - 1);
+  }
   __syncthreads();
-  for (long long base = 0; base < n_tiles; base += kScanThreads) {
-    long long i = base + threadIdx.x;
-    int64_t v = i < n_tiles ? offsets[i] : 0;
-    int64_t x = v;  // inclusive scan within the warp
-    for (int o = 1; o < 32; o <<= 1) {
-      int64_t y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
+
+  const long long row0 = static_cast<long long>(t) * kTile - lead;
+  const long long* payload_ll = reinterpret_cast<const long long*>(payload);
+  long long r[kUnroll];
+  long long v[kUnroll];
+  auto load_batch = [&](int p0) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int p = p0 + u * kThreads;
+      r[u] = p < aggregate ? row0 + rows[p] : 0;
+      if (out_payload && p < aggregate) v[u] = __ldg(payload_ll + r[u]);
     }
-    if (lane == 31) warp_sums[warp] = x;
-    __syncthreads();
-    if (warp == 0) {  // inclusive scan of the warp sums
-      int64_t s = warp_sums[lane];
-      for (int o = 1; o < 32; o <<= 1) {
-        int64_t y = __shfl_up_sync(0xffffffffu, s, o);
-        if (lane >= o) s += y;
+  };
+  load_batch(threadIdx.x);
+
+  // 3. look-back (warp 0)
+  if (warp == 0) {
+    long long exclusive = 0;
+    if (t > 0) {
+      for (long long last = t - 1;; last -= 32) {
+        const long long i = last - lane;
+        unsigned long long s = kPrefix;  // before tile 0: an empty prefix
+        if (i >= 0) {
+          do {
+            s = load_acquire(&status[i]);
+          } while (s < kAggregate);
+        }
+        const unsigned pre = __ballot_sync(0xffffffffu, s >= kPrefix);
+        const int stop = pre ? __ffs(pre) - 1 : 31;
+        long long x = lane <= stop ? static_cast<long long>(s & kValue) : 0;
+        for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+        exclusive += x;
+        if (pre) break;
       }
-      warp_sums[lane] = s;
+      if (lane == 0) {
+        store_release(&status[t], kPrefix | static_cast<unsigned long long>(
+                                                exclusive + aggregate));
+      }
     }
-    __syncthreads();
-    int64_t before = carry + (warp > 0 ? warp_sums[warp - 1] : 0);
-    if (i < n_tiles) offsets[i] = before + x - v;
-    __syncthreads();
-    if (threadIdx.x == 0) carry += warp_sums[kScanThreads / 32 - 1];
-    __syncthreads();
+    if (lane == 0) {
+      tile_offset = exclusive;
+      if (t == n_tiles - 1) *n_set = exclusive + aggregate;
+    }
   }
-  if (threadIdx.x == 0) offsets[n_tiles] = carry;
-}
-
-__global__ void scatter_kernel(const uint8_t* __restrict__ mask, long long N,
-                               const int64_t* __restrict__ offsets,
-                               const int64_t* __restrict__ payload,
-                               int64_t* __restrict__ out_idx,
-                               int64_t* __restrict__ out_payload) {
-  __shared__ int warp_totals[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int c = warp_count(mask, N);
-  if (lane == 0) warp_totals[warp] = c;
   __syncthreads();
-  long long pos = offsets[blockIdx.x];
-  for (int w = 0; w < warp; ++w) pos += warp_totals[w];
 
-  const unsigned below = (1u << lane) - 1u;
-  const long long first = warp_first_row() + lane;
-  for (int s = 0; s < kSteps; ++s) {
-    long long i = first + 32 * s;
-    bool set = is_set(mask, N, i);
-    unsigned ballot = __ballot_sync(0xffffffffu, set);
-    if (set) {
-      long long p = pos + __popc(ballot & below);
-      if (out_idx) out_idx[p] = i;
-      if (out_payload) out_payload[p] = payload[i];
+  // 4. write the tile's rows at its offset
+  int64_t* idx = out_idx + tile_offset;
+  int64_t* out = out_payload ? out_payload + tile_offset : nullptr;
+  for (int p0 = threadIdx.x; p0 < aggregate; p0 += kThreads * kUnroll) {
+    if (p0 != threadIdx.x) load_batch(p0);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int p = p0 + u * kThreads;
+      if (p < aggregate) {
+        idx[p] = r[u];
+        if (out) out[p] = v[u];
+      }
     }
-    pos += __popc(ballot);
   }
 }
 
@@ -138,29 +196,26 @@ __global__ void scatter_kernel(const uint8_t* __restrict__ mask, long long N,
 
 KMD_API long long kmd_compact_tile_rows(void) { return kTile; }
 
-// offsets: [ceil(N / kTile) + 1] int64; on return offsets[t] is tile t's
-// first output slot and offsets[n_tiles] the number of set rows.
-KMD_API int kmd_compact_offsets(const uint8_t* mask, long long N,
-                                int64_t* offsets, cudaStream_t stream) {
-  long long n_tiles = (N + kTile - 1) / kTile;
-  if (n_tiles > 0) {
-    tile_counts_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, stream>>>(
-        mask, N, offsets);
-  }
-  scan_tiles_kernel<<<1, kScanThreads, 0, stream>>>(offsets, n_tiles);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// out_idx and out_payload may each be null; payload is read only when
-// out_payload is given.
-KMD_API int kmd_compact_scatter(const uint8_t* mask, long long N,
-                                const int64_t* offsets, const int64_t* payload,
-                                int64_t* out_idx, int64_t* out_payload,
-                                cudaStream_t stream) {
-  long long n_tiles = (N + kTile - 1) / kTile;
-  if (n_tiles > 0) {
-    scatter_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, stream>>>(
-        mask, N, offsets, payload, out_idx, out_payload);
-  }
-  return static_cast<int>(cudaGetLastError());
+// mask [N], N > 0, at any byte offset; payload [N] or null (then
+// out_payload is null too); out_idx and out_payload with room for N rows;
+// scratch as the header says; n_set: page-locked host memory
+// (cudaHostAlloc, as torch's pin_memory allocates it), which the kernel
+// writes through the same pointer under unified addressing. Unlike the
+// other entry points this one waits for its kernel, so that *n_set holds
+// the number of set rows when it returns: the one host sync of a call.
+KMD_API int kmd_compact(const uint8_t* mask, long long N, const int64_t* payload,
+                        int64_t* out_idx, int64_t* out_payload, int64_t* scratch,
+                        long long* n_set, cudaStream_t stream) {
+  const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(mask) & 15);
+  const long long end = N + lead;
+  const long long n_tiles = (end + kTile - 1) / kTile;
+  cudaError_t e = cudaMemsetAsync(scratch, 0, (1 + n_tiles) * sizeof(int64_t), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  compact_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, stream>>>(
+      reinterpret_cast<const uint4*>(mask - lead), (end + 15) / 16, lead, end,
+      static_cast<int>(n_tiles), payload, out_idx, out_payload,
+      reinterpret_cast<unsigned long long*>(scratch), n_set);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) e = cudaStreamSynchronize(stream);
+  return static_cast<int>(e);
 }

@@ -17,8 +17,9 @@ stale library is never loaded.
 Each call of a kernel's C entry point (``launch``) adds one to that
 kernel's launch count (``launch_counts``); a caller resets the counts,
 drives a path and reads them to show the path went through the kernels. A
-C entry point returns ``cudaGetLastError()`` after its launches and
-``launch`` raises on anything but 0.
+C entry point returns ``cudaGetLastError()`` after its launches (K-CMP's,
+which returns a count, after waiting for its kernel) and ``launch`` raises
+on anything but 0.
 """
 
 from __future__ import annotations
@@ -59,8 +60,7 @@ _SIGNATURES = {
     "kmd_run_lengths": (_i, [_vp, _ll, _vp, _vp, _vp]),
     "kmd_run_group_sums": (_i, [_vp, _ll, _vp, _vp, _vp, _i, _vp, _vp]),
     "kmd_compact_tile_rows": (_ll, []),
-    "kmd_compact_offsets": (_i, [_vp, _ll, _vp, _vp]),
-    "kmd_compact_scatter": (_i, [_vp, _ll, _vp, _vp, _vp, _vp, _vp]),
+    "kmd_compact": (_i, [_vp, _ll, _vp, _vp, _vp, _vp, _vp, _vp]),
     "kmd_error_string": (ctypes.c_char_p, [_i]),
 }
 
@@ -168,7 +168,10 @@ def launch(kernel: str, entry: str, *args) -> None:
     """Call C entry point `entry` of `kernel` on the current stream, raise
     on a CUDA error, and count one launch of `kernel`."""
     handle = lib()
-    rc = getattr(handle, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    # the raw handle: torch.cuda.current_stream() builds a Stream object,
+    # which costs more host time than the launch itself
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    rc = getattr(handle, entry)(*args, stream)
     if rc != 0:
         msg = handle.kmd_error_string(rc).decode()
         raise RuntimeError(f"{entry}: CUDA error {rc} ({msg})")

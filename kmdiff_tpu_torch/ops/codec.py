@@ -26,6 +26,9 @@ the twin for a CPU tensor and the CUDA kernel for a CUDA tensor):
 
 from __future__ import annotations
 
+import ctypes
+import threading
+
 import numpy as np
 import torch
 
@@ -219,8 +222,12 @@ def compact_plain(mask: torch.Tensor, payload: torch.Tensor | None = None):
 
 def compact(mask: torch.Tensor, payload: torch.Tensor | None = None):
     """K-CMP: mask [N] bool -> (ascending indices of the set rows [n]
-    int64, payload[indices] or None). n is exact: the output is sized by
-    a first pass, with no budget and no retry."""
+    int64, payload[indices] or None). n is exact, with no budget and no
+    retry: one allocation holds both outputs at N rows each and the
+    kernel's scratch, one kernel writes the n set rows, and n into this
+    thread's page-locked count slot, and the C entry point waits for it.
+    The results are [:n] views, which hold the whole allocation until both
+    are freed."""
     if mask.device.type == "cpu":
         return compact_plain(mask, payload)
     kernels.require_cuda_tensor("compact mask", mask, torch.bool)
@@ -230,24 +237,36 @@ def compact(mask: torch.Tensor, payload: torch.Tensor | None = None):
         if payload.numel() != N:
             raise ValueError(f"compact: payload has {payload.numel()} rows, "
                              f"mask has {N}")
-    dev = mask.device
-    tile = kernels.lib().kmd_compact_tile_rows()
-    n_tiles = -(-N // tile)
-    offsets = torch.empty(n_tiles + 1, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        kernels.launch("compact", "kmd_compact_offsets", mask.data_ptr(), N,
-                       offsets.data_ptr())
-        total = int(offsets[n_tiles])
-        idx = torch.empty(total, dtype=torch.int64, device=dev)
-        out = (torch.empty(total, dtype=torch.int64, device=dev)
-               if payload is not None else None)
-        if total:
-            kernels.launch(
-                "compact", "kmd_compact_scatter", mask.data_ptr(), N,
-                offsets.data_ptr(), kernels.ptr(payload), idx.data_ptr(),
-                kernels.ptr(out),
-            )
-    return idx, out
+    # tiles start at the 16-byte boundary at or below the mask
+    n_tiles = -(-(N + mask.data_ptr() % 16) // kernels.lib().kmd_compact_tile_rows())
+    # [indices: N][payload values: N, with a payload][scratch]
+    n_out = N if payload is None else 2 * N
+    buf = torch.empty(n_out + 1 + n_tiles, dtype=torch.int64, device=mask.device)
+    n = 0
+    if N:
+        n_set = _count_slot()
+        base = buf.data_ptr()
+        with torch.cuda.device(mask.device):
+            kernels.launch("compact", "kmd_compact", mask.data_ptr(), N,
+                           kernels.ptr(payload), base,
+                           base + 8 * N if payload is not None else None,
+                           base + 8 * n_out, ctypes.addressof(n_set))
+        n = n_set.value
+    return buf[:n], (buf[N : N + n] if payload is not None else None)
+
+
+_thread = threading.local()
+
+
+def _count_slot() -> ctypes.c_longlong:
+    """This thread's page-locked int64 that K-CMP writes its count into;
+    one a thread suffices, since a call waits for its kernel."""
+    slot = getattr(_thread, "compact_count", None)
+    if slot is None:
+        pinned = torch.empty(1, dtype=torch.int64, pin_memory=True)
+        slot = (pinned, ctypes.c_longlong.from_address(pinned.data_ptr()))
+        _thread.compact_count = slot
+    return slot[1]
 
 
 # -- counting ------------------------------------------------------------------

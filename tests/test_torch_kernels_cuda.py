@@ -1,7 +1,9 @@
 """The four CUDA kernels of kmdiff_tpu_torch against their plain PyTorch
 twins on the card, at small shapes with edge cases (empty inputs, ragged
-tails, runs that cross tiles, k=1 and k=32). They need an NVIDIA GPU and
-nvcc, and skip without one; run them on the card with
+tails, runs that cross tiles, k=1 and k=32); K-CMP also at five densities
+from none to all rows, at more tiles than the card holds resident, on
+misaligned views, on reused memory and from four host threads. They need
+an NVIDIA GPU and nvcc, and skip without one; run them on the card with
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -88,6 +90,110 @@ def test_compact_empty_and_full(dev):
                  torch.zeros(0, dtype=torch.bool, device=dev)):
         idx, _ = codec.compact(mask)
         _eq(idx, codec.compact_plain(mask)[0])
+
+
+# K-CMP at the densities of its callers: none, the LRT survivors (~0.1%),
+# half, run starts (~98%) and all rows
+DENSITIES = (0.0, 0.001, 0.5, 0.98, 1.0)
+
+
+def _mask(rng, n, density, dev):
+    return torch.from_numpy(rng.random(n) < density).to(dev)
+
+
+def _payload(n, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-(2**62), 2**62, (n,), generator=gen, device=dev)
+
+
+def _check_compact(mask, payload):
+    """K-CMP's outputs against compact_plain's, element for element."""
+    idx, out = codec.compact(mask, payload)
+    idx_p, out_p = codec.compact_plain(mask, payload)
+    _eq(idx, idx_p)
+    if payload is None:
+        assert out is None
+    else:
+        _eq(out, out_p)
+
+
+@pytest.mark.parametrize("with_payload", [False, True])
+@pytest.mark.parametrize("density", DENSITIES)
+def test_compact_sizes_around_tiles(dev, density, with_payload):
+    tile = kernels.lib().kmd_compact_tile_rows()
+    rng = np.random.default_rng(int(density * 1000) + with_payload)
+    for n in (1, 15, 16, 17, tile - 1, tile, tile + 1, 3 * tile - 1,
+              3 * tile, 3 * tile + 1):
+        mask = _mask(rng, n, density, dev)
+        payload = _payload(n, dev, n) if with_payload else None
+        before = kernels.launch_counts()["compact"]
+        _check_compact(mask, payload)
+        assert kernels.launch_counts()["compact"] == before + 1
+
+
+@pytest.mark.parametrize("with_payload", [False, True])
+@pytest.mark.parametrize("density", DENSITIES)
+def test_compact_many_tiles(dev, density, with_payload):
+    """More tiles than the card holds resident, so the look-back waits on
+    tiles whose blocks started late."""
+    n = 3 * (1 << 22) + 7
+    rng = np.random.default_rng(int(density * 1000))
+    mask = _mask(rng, n, density, dev)
+    _check_compact(mask, _payload(n, dev, 1) if with_payload else None)
+
+
+@pytest.mark.parametrize("density", DENSITIES)
+def test_compact_misaligned_views(dev, density):
+    tile = kernels.lib().kmd_compact_tile_rows()
+    rng = np.random.default_rng(int(density * 1000) + 2)
+    base = _mask(rng, 4 * tile, density, dev)
+    values = _payload(4 * tile, dev, 3)
+    for lead in (1, 3, 8, 15):
+        for n in (1, 17, tile - lead, tile + 5, 3 * tile + 9):
+            mask = base[lead : lead + n]
+            assert mask.data_ptr() % 16 == lead
+            _check_compact(mask, values[1 : 1 + n])
+            _check_compact(mask, None)
+
+
+def test_compact_back_to_back_calls(dev):
+    """Consecutive calls on one stream, each freeing its outputs before the
+    next: the caching allocator hands the same memory back, with the last
+    call's tile status words in it, which each call must clear before its
+    tiles read them."""
+    rng = np.random.default_rng(5)
+    n = 5 * kernels.lib().kmd_compact_tile_rows() + 3
+    payload = _payload(n, dev, 5)
+    masks = [_mask(rng, n, d, dev) for d in (0.98, 0.001, 1.0, 0.0, 0.5, 0.98)]
+    got, ptrs = [], []
+    for m in masks:
+        idx, out = codec.compact(m, payload)
+        ptrs.append(idx.data_ptr())
+        got.append((idx.cpu(), out.cpu()))
+        del idx, out
+    assert len(set(ptrs)) < len(ptrs), "no call reused a freed allocation"
+    for m, (idx, out) in zip(masks, got):
+        idx_p, out_p = codec.compact_plain(m, payload)
+        _eq(idx, idx_p)
+        _eq(out, out_p)
+
+
+def test_compact_from_four_threads(dev):
+    """Four host threads compacting at once, as the count pipeline's sample
+    threads do."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(6)
+    cases = []
+    for i, d in enumerate((0.98, 0.001, 0.5, 1.0) * 3):
+        n = 200_000 + 4099 * i
+        cases.append((_mask(rng, n, d, dev), _payload(n, dev, i)))
+    with ThreadPoolExecutor(4) as pool:
+        results = list(pool.map(lambda c: codec.compact(*c), cases))
+    for (m, p), (idx, out) in zip(cases, results):
+        idx_p, out_p = codec.compact_plain(m, p)
+        _eq(idx, idx_p)
+        _eq(out, out_p)
 
 
 def test_merge_lrt_cuda_matches_cpu(dev):
