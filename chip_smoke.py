@@ -6,21 +6,32 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds the port's four CUDA kernels from csrc/ with nvcc.
+   versions, and builds the port's seven CUDA kernels from csrc/ with nvcc
+   (one nvcc a source, all at once).
 2. Holds each kernel against its plain PyTorch twin on the card at the
    main path's shapes and prints both median times (CUDA events); K-CMP
    at its dense shape (run starts) and its sparse one (LRT survivors),
-   with its achieved bandwidth and its launches and host syncs a call.
-   Integers must be equal; lr within rtol 1e-6 and atol 1e-6; keep equal
-   except where the margin-adjusted lr lies within 1e-5*max(1, lr) of
-   lr_min.
-3. Drives the main path through the port's CLI: popsim of the bench cohort
+   with its achieved bandwidth and its launches and host syncs a call;
+   K-ASM on 20 streams into a ~2^24-row chunk in both packings, K-WRUN
+   on three overlapping 2^22-key streams with hard-min 2, K-HIST on 2^23
+   counts with a tail above 255. Integers must be equal; lr within rtol
+   1e-6 and atol 1e-6; keep equal except where the margin-adjusted lr
+   lies within 1e-5*max(1, lr) of lr_min.
+3. Drives count + diff through the port's CLI: popsim of the bench cohort
    (10 controls + 10 cases, 2^23 bp genome, 150 bp reads, coverage 1, error
    rate 0.001, seed 7), `count` (k=31, 4 partitions, hard-min 1) and `diff`
-   (-1 10 -2 10, defaults) on CUDA, with every kernel's launch count reset
-   just before and required > 0 just after. Then it reruns `diff` and
-   recounts sample 0 with device="cpu" (the plain twins) and requires
-   byte-identical outputs.
+   (-1 10 -2 10, defaults) on CUDA, with the launch counts reset just
+   before and required > 0 just after for the four kernels this path
+   runs. Then it reruns `diff` and recounts sample 0 with device="cpu"
+   (the plain twins) and requires byte-identical outputs.
+4. Drives the fused `run` (cmd.run.main_run, with the options the CLI
+   builds) on the same cohort and count flags, twice, the launch counts
+   reset before each: (a) the defaults, whose FASTA must equal phase 3's
+   and whose count files and histograms must equal phase 3's run
+   directory; (b) `-s 0.001 --cutoff 1 -c disabled` with the count's
+   SORT_ROWS lowered to 2^22 - 128, so that every sample counts in two
+   chunks and K-WRUN merges them, whose FASTA must equal phase 3's loose
+   `diff`. Both must be served by the fused path and launch its kernels.
 
 Exits non-zero, printing no result, without CUDA or without the rest of the
 checkout. The last line of standard output is the result:
@@ -208,7 +219,106 @@ def compare_kernels(dev) -> dict:
     print(f"[K-CMP] compact 2^22 rows -> {len(hit)} (sparse) with payload: "
           f"kernel {ms:.4f} ms, plain {plain:.4f} ms; "
           f"{compact_costs(sparse, values)[0]}")
+
+    out["assemble_chunk"] = compare_assemble(dev)
+    out["weighted_runs"] = compare_weighted_runs(dev)
+    out["abundance_hist"] = compare_hist(dev, rng)
     return out
+
+
+def _random_streams(dev, S, U, seed, top):
+    """S sorted distinct int64 key streams of U rows from one key pool, with
+    u32 counts (int32) below top."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pool = torch.unique(torch.randint(-(2**62), 2**62, (3 * U,), generator=gen,
+                                      device=dev))
+    keys, counts = [], []
+    for _ in range(S):
+        pick = torch.randperm(pool.numel(), generator=gen, device=dev)[:U]
+        keys.append(torch.sort(pool[pick]).values)
+        counts.append(torch.randint(1, top, (U,), generator=gen, device=dev,
+                                    dtype=torch.int64).to(torch.int32))
+    return keys, counts
+
+
+def compare_assemble(dev):
+    """K-ASM at the merge's shape: a ~2^24-row chunk from 20 streams."""
+    import numpy as np
+
+    from kmdiff_tpu_torch.pipeline.fused import assemble_chunk, assemble_chunk_plain
+
+    S, U = N_CONTROLS + N_CASES, 900_000
+    rng = np.random.default_rng(11)
+    lens = rng.integers(780_000, 850_000, S)
+    lens[3] = 0  # a stream with nothing in this key range
+    starts = rng.integers(0, U - lens + 1)
+    res = {}
+    for pack16, top in ((True, 1 << 15), (False, 1 << 32)):
+        keys, counts = _random_streams(dev, S, U, 3, top)
+        args = (keys, counts, starts, lens, N_CONTROLS, pack16)
+        got, want = assemble_chunk(*args), assemble_chunk_plain(*args)
+        check_equal("assemble_chunk keys", got[0], want[0])
+        check_equal("assemble_chunk counts", got[1], want[1])
+        ms = median_ms(lambda: assemble_chunk(*args))
+        plain = median_ms(lambda: assemble_chunk_plain(*args))
+        name = "p16" if pack16 else "p32"
+        print(f"[K-ASM] assemble_chunk {S} streams -> {int(lens.sum())} rows "
+              f"({name}): kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        res[name] = (ms, plain, 0.0)
+    return res["p16"]
+
+
+def compare_weighted_runs(dev):
+    """K-WRUN at a multi-chunk sample's shape: three overlapping distinct
+    streams of 2^22 keys, their counts summed per k-mer, hard-min 2."""
+    import torch
+
+    from kmdiff_tpu_torch.ops import codec
+
+    keys, counts = _random_streams(dev, 3, 1 << 22, 5, 40)
+    keys, weights = torch.cat(keys), torch.cat(counts)
+    keys_s, perm = torch.sort(keys)
+    flags, n_valid = codec.run_flags(keys_s)
+    starts, _ = codec.compact(flags)
+    args = (starts, n_valid, perm, weights)
+    sums = codec.weighted_run_sums(*args)
+    check_equal("weighted_run_sums", sums, codec.weighted_run_sums_plain(*args))
+    run_rows = codec.run_lengths(starts, n_valid)
+    kept, kept_counts, _stats = codec.dedup_sum(keys, weights, hard_min=2)
+    if kept.numel() != int((sums >= 2).sum()) or int(kept_counts.min()) < 2:
+        raise AssertionError("dedup_sum: hard-min 2 kept the wrong runs")
+    ms = median_ms(lambda: codec.weighted_run_sums(*args))
+    plain = median_ms(lambda: codec.weighted_run_sums_plain(*args))
+    print(f"[K-WRUN] weighted_run_sums {starts.numel()} runs of {keys.numel()} "
+          f"rows (1 to {int(run_rows.max())} rows a run), {kept.numel()} kept at "
+          f"hard-min 2: kernel {ms:.4f} ms, plain {plain:.4f} ms")
+    return ms, plain, 0.0
+
+
+def compare_hist(dev, rng):
+    """K-HIST at a sample's shape: 2^23 counts, mostly 1, with a tail above
+    255."""
+    import numpy as np
+    import torch
+
+    from kmdiff_tpu_torch.ops import codec
+
+    n = 1 << 23
+    c = np.minimum(rng.geometric(0.6, n), 255).astype(np.int32)
+    c[:: 1 << 12] = rng.integers(256, 2**31, len(c[:: 1 << 12]))
+    counts = torch.from_numpy(c).to(dev)
+    hist = codec.abundance_hist(counts)
+    check_equal("abundance_hist", hist, codec.abundance_hist_plain(counts))
+    if int(hist[256]) < 2048:
+        raise AssertionError("the histogram test input lost its tail")
+    ms = median_ms(lambda: codec.abundance_hist(counts))
+    plain = median_ms(lambda: codec.abundance_hist_plain(counts))
+    print(f"[K-HIST] abundance_hist 2^23 counts ({int(hist[1])} at 1, "
+          f"{int(hist[256])} above 255): kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms")
+    return ms, plain, 0.0
 
 
 def device_work(fn, reps: int = 10) -> tuple[float, int]:
@@ -331,9 +441,7 @@ def run_main_path(dev) -> dict:
     launches = kernels.launch_counts()
     print(f"[main path] count {t_count:.3f} s, diff {t_diff:.3f} s "
           f"(wall, CUDA); launches {launches}")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
+    require_launches("count + diff", launches, COUNT_DIFF_KERNELS)
 
     t0 = time.perf_counter()
     tested, n_sig = _diff_cpu_vs_gpu(main, dev, diff_args, "defaults", 0.05)
@@ -375,7 +483,99 @@ def run_main_path(dev) -> dict:
                 raise AssertionError(f"{rel}: CUDA and CPU counts differ")
     print(f"[main path] sample {sid} recounted on CPU in {t_cpu0:.3f} s: "
           f".kmer.lz4 and .hist byte-identical")
-    return launches
+    return {"launches": launches, "count": t_count, "diff": t_diff,
+            "fof": fof, "run": run}
+
+
+#: the kernels each path launches
+COUNT_DIFF_KERNELS = ("canonical_kmers", "run_bounds", "compact", "lrt_filter")
+RUN_KERNELS = (*COUNT_DIFF_KERNELS, "assemble_chunk", "abundance_hist")
+
+
+def require_launches(path: str, launches: dict, names) -> None:
+    missing = [n for n in names if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"{path} never launched {missing}")
+
+
+def _same_bytes(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def run_fused(dev, phase3) -> dict:
+    """Phase 4: the fused `run` on CUDA, through cmd.run.main_run with the
+    options the CLI builds; (a) the defaults, (b) the loose cut with
+    two-chunk samples. Returns each run's launch counts."""
+    from kmdiff_tpu_torch import kernels
+    from kmdiff_tpu_torch.cli import count_options, diff_options, parse_args
+    from kmdiff_tpu_torch.cmd.run import main_run
+    from kmdiff_tpu_torch.pipeline import count as count_mod
+
+    base = ["run", "--file", phase3["fof"], "--kmer-size", "31", "--hard-min",
+            "1", "--nb-partitions", "4", "--threads", "4", "-1",
+            str(N_CONTROLS), "-2", str(N_CASES)]
+    cases = {
+        "a": ([], "defaults_gpu", RUN_KERNELS, None),
+        "b": (["-s", "0.001", "--cutoff", "1", "-c", "disabled"], "loose_gpu",
+              (*RUN_KERNELS, "weighted_runs"), (1 << 22) - 128),
+    }
+    out = {}
+    sort_rows = count_mod.SORT_ROWS
+    for label, (extra, ref, needed, rows) in cases.items():
+        run_dir = os.path.join(WORK, f"fused_run_{label}")
+        out_dir = os.path.join(WORK, f"fused_out_{label}")
+        args = parse_args([*base, *extra, "--run-dir", run_dir,
+                           "--output-dir", out_dir])
+        timings = {}
+        if rows:
+            count_mod.SORT_ROWS = rows
+        try:
+            kernels.reset_launch_counts()
+            res = main_run(count_options(args), diff_options(args), dev,
+                           recurrence_min=args.recurrence_min,
+                           count_files=not args.no_count_files,
+                           timings=timings)
+            launches = kernels.launch_counts()
+        finally:
+            count_mod.SORT_ROWS = sort_rows
+        if "merge" not in timings:
+            raise AssertionError(f"run ({label}) was not served by the fused path")
+        require_launches(f"run ({label})", launches, needed)
+        for g in ("control", "case"):
+            name = f"{g}_kmers.fasta"
+            if not _same_bytes(os.path.join(out_dir, name),
+                               os.path.join(WORK, ref, name)):
+                raise AssertionError(f"run ({label}) {name} differs from diff's")
+        if label == "a":
+            for p in range(4):
+                pdir = os.path.join("counts", f"partition_{p}")
+                names = sorted(os.listdir(os.path.join(phase3["run"], pdir)))
+                if sorted(os.listdir(os.path.join(run_dir, pdir))) != names:
+                    raise AssertionError(f"run (a) {pdir}: other files")
+                for n in names:
+                    if not _same_bytes(os.path.join(run_dir, pdir, n),
+                                       os.path.join(phase3["run"], pdir, n)):
+                        raise AssertionError(f"run (a) {pdir}/{n} differs")
+            hdir = "histograms"
+            for n in sorted(os.listdir(os.path.join(phase3["run"], hdir))):
+                if not _same_bytes(os.path.join(run_dir, hdir, n),
+                                   os.path.join(phase3["run"], hdir, n)):
+                    raise AssertionError(f"run (a) {hdir}/{n} differs")
+        elif not res["control"] or not res["case"]:
+            raise AssertionError(f"run ({label}) kept no k-mer: {res}")
+        print(f"[run {label}] {' '.join(extra) or 'defaults'}: count "
+              f"{timings['count']:.3f} s, merge {timings['merge']:.3f} s, "
+              f"total {timings['total']:.3f} s (wall, CUDA; phase 3: count "
+              f"{phase3['count']:.3f} s, diff {phase3['diff']:.3f} s); "
+              f"{res['total_kmers']} k-mers tested, significant "
+              f"{res['control']} control / {res['case']} case, FASTA "
+              f"byte-identical to diff's"
+              + ("; count files and histograms byte-identical to count's"
+                 if label == "a" else "")
+              + f"; launches {launches}")
+        out[label] = launches
+    return out
 
 
 def main() -> int:
@@ -409,21 +609,27 @@ def main() -> int:
     os.makedirs(WORK)
     try:
         timings = compare_kernels(dev)
-        launches = run_main_path(dev)
+        phase3 = run_main_path(dev)
+        fused_launches = run_fused(dev, phase3)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     if loaded:
         raise AssertionError(f"JAX was imported: {loaded}")
 
+    # name -> (TPU function it replaces, the path run whose launches count)
     meta = {
-        "lrt_filter": "kmdiff_tpu/ops/lrt_pallas.py:68",
-        "canonical_kmers": "kmdiff_tpu/ops/codec.py:73",
-        "run_bounds": "kmdiff_tpu/ops/codec.py:341",
-        "compact": "kmdiff_tpu/ops/merge_dev.py:49",
+        "lrt_filter": ("kmdiff_tpu/ops/lrt_pallas.py:68", phase3["launches"]),
+        "canonical_kmers": ("kmdiff_tpu/ops/codec.py:73", phase3["launches"]),
+        "run_bounds": ("kmdiff_tpu/ops/codec.py:341", phase3["launches"]),
+        "compact": ("kmdiff_tpu/ops/merge_dev.py:49", phase3["launches"]),
+        "assemble_chunk": ("kmdiff_tpu/pipeline/fused.py:387",
+                           fused_launches["a"]),
+        "weighted_runs": ("kmdiff_tpu/ops/codec.py:396", fused_launches["b"]),
+        "abundance_hist": ("kmdiff_tpu/ops/codec.py:418", fused_launches["a"]),
     }
     rows = []
-    for name, replaces in meta.items():
+    for name, (replaces, launches) in meta.items():
         ms, plain, err = timings[name]
         rows.append({
             "name": name, "route": "cuda",

@@ -1,18 +1,23 @@
 """Build, load and launch the hand-written CUDA kernels of the port.
 
-The four kernels live in ``csrc/*.cu`` beside this file:
+The kernels live in ``csrc/*.cu`` beside this file:
 
-  lrt_filter       K-LRT  Poisson LR filter       (ops.lrt_kernel)
-  canonical_kmers  K-EXT  canonical k-mer keys    (ops.codec)
-  run_bounds       K-RUN  run starts and sums     (ops.codec)
-  compact          K-CMP  ordered compaction      (ops.codec)
+  lrt_filter       K-LRT   Poisson LR filter          (ops.lrt_kernel)
+  canonical_kmers  K-EXT   canonical k-mer keys       (ops.codec)
+  run_bounds       K-RUN   run starts and sums        (ops.codec)
+  compact          K-CMP   ordered compaction         (ops.codec)
+  assemble_chunk   K-ASM   merge chunk from resident  (pipeline.fused)
+                           stream slices
+  weighted_runs    K-WRUN  per-run u32 weight sums    (ops.codec)
+  abundance_hist   K-HIST  abundance histogram        (ops.codec)
 
-They are compiled with ``nvcc`` for ``sm_90a`` into one shared library with
-a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds). The build happens at the first launch in a process, never
-at import, into ``build/kmdiff_tpu_torch/`` under the checkout; the file
-name carries a hash of the sources, so an edited source is rebuilt and a
-stale library is never loaded.
+Each source is compiled with ``nvcc`` for ``sm_90a`` into an object, all of
+them at once in parallel, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds). The build happens at the first launch
+in a process, never at import, into ``build/kmdiff_tpu_torch/`` under the
+checkout; the file name carries a hash of the sources, so an edited source
+is rebuilt and a stale library is never loaded.
 
 Each call of a kernel's C entry point (``launch``) adds one to that
 kernel's launch count (``launch_counts``); a caller resets the counts,
@@ -38,13 +43,14 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kmdiff_tpu_torch")
 
-KERNELS = ("lrt_filter", "canonical_kmers", "run_bounds", "compact")
+KERNELS = ("lrt_filter", "canonical_kmers", "run_bounds", "compact",
+           "assemble_chunk", "weighted_runs", "abundance_hist")
 
 #: -fmad=false and no --use_fast_math: the LR margin assumes IEEE logf,
 #: division and unfused multiply-adds (kmdiff_tpu/ops/lrt.py:41-46)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _vp = ctypes.c_void_p
@@ -61,6 +67,9 @@ _SIGNATURES = {
     "kmd_run_group_sums": (_i, [_vp, _ll, _vp, _vp, _vp, _i, _vp, _vp]),
     "kmd_compact_tile_rows": (_ll, []),
     "kmd_compact": (_i, [_vp, _ll, _vp, _vp, _vp, _vp, _vp, _vp]),
+    "kmd_assemble_chunk": (_i, [_vp, _i, _ll, _i, _vp, _vp, _vp]),
+    "kmd_weighted_run_sums": (_i, [_vp, _ll, _vp, _vp, _vp, _vp, _vp]),
+    "kmd_abundance_hist": (_i, [_vp, _ll, _vp, _vp]),
     "kmd_error_string": (ctypes.c_char_p, [_i]),
 }
 
@@ -129,22 +138,41 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libkmdiff_kernels-{h.hexdigest()[:16]}.so")
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands at once and wait for all; raise on any failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        _out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build() -> str:
-    """Compile csrc/*.cu into the hashed library unless it exists."""
+    """Compile csrc/*.cu into the hashed library unless it exists: one nvcc
+    per source, all started together, then one link."""
     global build_seconds
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in sources() if s.endswith(".cu")]]
+    tag = f"{os.getpid()}.tmp"
+    cus = [s for s in sources() if s.endswith(".cu")]
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)[:-3]}.{tag}.o")
+            for s in cus]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}"
-        )
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(cus, objs)])
+        tmp = f"{out}.{tag}"
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out

@@ -18,15 +18,21 @@ the twin for a CPU tensor and the CUDA kernel for a CUDA tensor):
                           control/case sums
   K-CMP compact           mask (+ int64 payload) -> ascending set indices
                           (+ gathered payload)
+  K-WRUN weighted_run_sums
+                          run starts + permuted u32 weights -> per-run
+                          int64 sums
+  K-HIST abundance_hist   u32 counts -> [257] abundance cardinalities
 
 ``sort_rle`` and ``fused_count`` chain them into the counting program
-(sort_rle_core / fused_count_kernel in the JAX package). The sort itself is
+(sort_rle_core / fused_count_kernel in the JAX package), ``dedup_sum`` into
+the k-way merge of counted streams (dedup_sum_lanes). The sort itself is
 ``torch.sort`` on int64 keys, as the JAX package leaves it to XLA's sort.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
 
 import numpy as np
@@ -41,6 +47,9 @@ SENTINEL = torch.iinfo(torch.int64).max
 #: 1<<63 as an int64 (the order-preserving flip between u64 words and keys)
 _SIGN = torch.iinfo(torch.int64).min
 MAX_K = 32
+#: abundance bins: 1..255 one value each, 256 for every count above 255
+HIST_BINS = 257
+_U32 = 0xFFFFFFFF
 
 
 # -- host helpers --------------------------------------------------------------
@@ -269,16 +278,136 @@ def _count_slot() -> ctypes.c_longlong:
     return slot[1]
 
 
+# -- K-WRUN --------------------------------------------------------------------
+
+def _u32(t: torch.Tensor) -> torch.Tensor:
+    """int32 holding u32 bit patterns -> their values as int64."""
+    return t.to(torch.int64) & _U32
+
+
+def weighted_run_sums_plain(starts, n_valid, perm, weights):
+    w = _u32(weights[perm])
+    cs = torch.zeros(w.numel() + 1, dtype=torch.int64, device=w.device)
+    cs[1:] = torch.cumsum(w, 0)
+    return cs[_run_ends(starts, n_valid)] - cs[starts]
+
+
+def weighted_run_sums(starts: torch.Tensor, n_valid: torch.Tensor,
+                      perm: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """K-WRUN: per run, the sum of the u32 weights of its rows (row r of
+    the sorted order is weights[perm[r]]; weights int32 holding u32 bit
+    patterns) -> [U] int64, exact."""
+    if starts.device.type == "cpu":
+        return weighted_run_sums_plain(starts, n_valid, perm, weights)
+    kernels.require_cuda_tensor("weighted_run_sums starts", starts, torch.int64)
+    kernels.require_cuda_tensor("weighted_run_sums n_valid", n_valid, torch.int64)
+    kernels.require_cuda_tensor("weighted_run_sums perm", perm, torch.int64)
+    kernels.require_cuda_tensor("weighted_run_sums weights", weights, torch.int32)
+    U = starts.numel()
+    sums = torch.empty(U, dtype=torch.int64, device=starts.device)
+    if U:
+        with torch.cuda.device(starts.device):
+            kernels.launch("weighted_runs", "kmd_weighted_run_sums",
+                           starts.data_ptr(), U, n_valid.data_ptr(),
+                           perm.data_ptr(), weights.data_ptr(), sums.data_ptr())
+    return sums
+
+
+# -- K-HIST --------------------------------------------------------------------
+
+def abundance_hist_plain(counts: torch.Tensor) -> torch.Tensor:
+    return torch.bincount(_u32(counts).clamp_max(HIST_BINS - 1),
+                          minlength=HIST_BINS)
+
+
+def abundance_hist(counts: torch.Tensor) -> torch.Tensor:
+    """K-HIST: counts [N] int32 holding u32 -> [257] int64, bin b in 1..255
+    the number of counts equal to b, bin 256 the number above 255 (the
+    JAX package's uvec[1:]; bin 0 counts zeros)."""
+    if counts.device.type == "cpu":
+        return abundance_hist_plain(counts)
+    kernels.require_cuda_tensor("abundance_hist counts", counts, torch.int32)
+    N = counts.numel()
+    if not N:
+        return torch.zeros(HIST_BINS, dtype=torch.int64, device=counts.device)
+    bins = torch.empty(HIST_BINS, dtype=torch.int64, device=counts.device)
+    with torch.cuda.device(counts.device):
+        kernels.launch("abundance_hist", "kmd_abundance_hist",
+                       counts.data_ptr(), N, bins.data_ptr())
+    return bins
+
+
 # -- counting ------------------------------------------------------------------
 
-def sort_rle(keys: torch.Tensor):
+@dataclasses.dataclass
+class RleStats:
+    """What sort_rle_core's stats read carries besides n_distinct."""
+
+    n_valid: int      # non-sentinel input rows (counted windows for sort_rle)
+    max_count: int    # largest count (0 when there is none)
+    hist: np.ndarray | None  # [257] int64 abundance_hist, with_hist only
+
+
+def _stats(n_valid: torch.Tensor, counts: torch.Tensor,
+           with_hist: bool) -> RleStats:
+    """n_valid, the max of counts (int64, or int32 holding u32) and the
+    histogram in one device-to-host copy."""
+    c64 = counts if counts.dtype == torch.int64 else _u32(counts)
+    mx = (c64.max() if c64.numel()
+          else torch.zeros((), dtype=torch.int64, device=c64.device))
+    parts = [n_valid, mx.reshape(1)]
+    if with_hist:
+        parts.append(abundance_hist(counts.to(torch.int32)))
+    host = torch.cat(parts).cpu().numpy()
+    return RleStats(int(host[0]), int(host[1]),
+                    host[2:].copy() if with_hist else None)
+
+
+def sort_rle(keys: torch.Tensor, with_hist: bool = False):
     """Sort keys and run-length encode them (the JAX package's
     sort_rle_core without weights): -> (distinct keys [U] ascending, counts
-    [U] int32). Sentinel keys are dropped."""
+    [U] int32), and with_hist also RleStats with the histogram (K-HIST).
+    Sentinel keys are dropped. The keys are a [:U] view of K-CMP's buffer."""
     keys_s = torch.sort(keys).values
     flags, n_valid = run_flags(keys_s)
     starts, run_keys = compact(flags, keys_s)
-    return run_keys, run_lengths(starts, n_valid)
+    counts = run_lengths(starts, n_valid)
+    if not with_hist:
+        return run_keys, counts
+    return run_keys, counts, _stats(n_valid, counts, True)
+
+
+def keep_at_least(keys: torch.Tensor, counts: torch.Tensor, hard_min: int):
+    """The rows whose count (int64, or int32 holding u32) is >= hard_min,
+    in order (K-CMP)."""
+    c64 = counts if counts.dtype == torch.int64 else _u32(counts)
+    idx, kept = compact(c64 >= hard_min, keys)
+    return kept, counts[idx]
+
+
+def dedup_sum(keys: torch.Tensor, weights: torch.Tensor, hard_min: int = 1,
+              with_hist: bool = False):
+    """k-way merge of counted streams (the JAX package's dedup_sum_lanes):
+    keys [N] int64 in any order, weights [N] int32 holding u32 counts ->
+    (distinct keys [U] ascending, counts [U] int32 holding each key's u32
+    weight sum, RleStats). Runs summing below hard_min are dropped, and the
+    stats (max, histogram) describe the kept runs.
+
+    torch.sort with its permutation, run starts (K-RUN, K-CMP), the per-run
+    sums read through the permutation (K-WRUN), exact in int64. Each sum
+    must fit the u32 of the count files (as the JAX package's wrapped-u32
+    sums assume); OverflowError otherwise."""
+    keys_s, perm = torch.sort(keys)
+    flags, n_valid = run_flags(keys_s)
+    starts, run_keys = compact(flags, keys_s)
+    sums = weighted_run_sums(starts, n_valid, perm, weights)
+    if hard_min > 1:
+        run_keys, sums = keep_at_least(run_keys, sums, hard_min)
+    stats = _stats(n_valid, sums, with_hist)
+    if stats.max_count > _U32:
+        raise OverflowError(f"a k-mer's summed count {stats.max_count} "
+                            "exceeds the u32 of the count files")
+    return run_keys, sums.to(torch.int32), stats
 
 
 def fused_count(codes: torch.Tensor, k: int):

@@ -142,14 +142,28 @@ def count_sample_device(all_codes: list[np.ndarray], k: int,
     if not chunks:
         return (np.zeros((0, 1), np.uint64), np.zeros(0, np.uint32),
                 np.zeros(0, np.uint32))
-    streams = []
-    for chunk in chunks:
-        codes = torch.from_numpy(chunk).to(device)
-        keys, counts = fused_count(codes, k)
-        streams.append((keys_to_words(keys.cpu().numpy()),
-                        counts.cpu().numpy().view(np.uint32)))
+    streams = [fetch_stream(*fused_count(torch.from_numpy(c).to(device), k))
+               for c in chunks]
     kmers, counts_h = streams[0] if len(streams) == 1 else _merge_streams(streams)
     return _regroup_by_partition(kmers, counts_h, nb_partitions)
+
+
+def fetch_stream(keys: torch.Tensor, counts: torch.Tensor):
+    """A counted stream on the device (int64 keys, int32 counts holding
+    u32) -> (kmers [U, 1] u64, counts [U] u32) on the host."""
+    return (keys_to_words(keys.cpu().numpy()),
+            counts.cpu().numpy().view(np.uint32))
+
+
+def spill_resident_sample(run_dir: str, entry_id: str, sample_idx: int,
+                          kmer_size: int, nb_partitions: int, stream) -> None:
+    """Write one resident stream (pipeline.fused.ResidentStream, after
+    hard-min) as the sample's per-partition count files: the fused run's
+    background spill, byte-identical to run_count's files."""
+    kmers, counts = fetch_stream(stream.keys, stream.counts)
+    kmers, parts, counts = _regroup_by_partition(kmers, counts, nb_partitions)
+    write_sample_count_files(run_dir, entry_id, sample_idx, kmer_size,
+                             nb_partitions, kmers, parts, counts)
 
 
 def count_sample(paths: list[str], k: int, nb_partitions: int,

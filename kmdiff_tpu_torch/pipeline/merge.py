@@ -10,6 +10,9 @@ partition thread pool).
   each chunk is complete because every stream is sorted.
 * Prebuilt count matrices: [B, S] row blocks go through K-LRT
   (ops.lrt.run_filter) in BLOCK_ROWS tiles.
+* Chunks already on the device (the fused run's key-range chunks,
+  pipeline.fused) enter at PartitionProcessor.merge_device_chunk, where
+  the count-file path's chunks end too.
 
 Either way the small survivor set is rescored in exact f64 on the host
 (kmdiff_tpu.core.model), which reproduces kmdiff's p-values.
@@ -217,9 +220,37 @@ class PartitionProcessor:
 
     def _device_merge_chunk(self, partition, kmers_list, counts_list, acc,
                             nbc, finish=True) -> PartitionResult:
-        n_distinct, hit_kmers, s_c, s_k = self._dispatch_single(
-            kmers_list, counts_list, nbc
+        """Pack one chunk's host streams into keys and packed counts, ship
+        them and merge them on the device."""
+        from kmdiff_tpu_torch.ops.merge_dev import build_triples_packed, pack16_ok
+
+        t0 = time.perf_counter()
+        keys, count, _N = build_triples_packed(
+            kmers_list, counts_list, nbc, pack16=pack16_ok(counts_list)
         )
+        self.phases.add("build", time.perf_counter() - t0)
+        return self.merge_device_chunk(
+            partition, torch.from_numpy(keys).to(self.device),
+            torch.from_numpy(count).to(self.device), acc, finish=finish,
+        )
+
+    def merge_device_chunk(self, partition, keys: torch.Tensor,
+                           count: torch.Tensor, acc,
+                           finish=True) -> PartitionResult:
+        """One chunk already on the device: keys [N] int64 and packed
+        counts [N] (merge_dev.build_triples_packed's packing) -> merge and
+        filter there (merge_dev.merge_lrt), rescore the survivors in f64 on
+        the host, push them to acc. The count+diff merge and the fused
+        run's merge both end here."""
+        from kmdiff_tpu_torch.ops.merge_dev import merge_lrt
+
+        t0 = time.perf_counter()
+        n_distinct, hit_keys, hit_sums = merge_lrt(
+            keys, count, self.params.ratio_c, self.params.ratio_k,
+            self.params.lr_min,
+        )
+        hit_kmers, s_c, s_k = self._unpack_blob(hit_keys, hit_sums)
+        self.phases.add("device", time.perf_counter() - t0)
         p, sg, mc, mk = self.model.process_sums(s_c, s_k)
         final = p <= self.threshold
         block = KmerSignBlock(
@@ -253,31 +284,6 @@ class PartitionProcessor:
         int64) on the host."""
         sums = hit_sums.cpu().numpy().astype(np.int64)
         return keys_to_words(hit_keys.cpu().numpy()), sums[:, 0], sums[:, 1]
-
-    def _dispatch_single(self, kmers_list, counts_list, nbc):
-        """Build one chunk's keys and packed counts, ship them, merge and
-        filter on the device; returns (n_distinct, survivor kmers, s_c,
-        s_k)."""
-        from kmdiff_tpu_torch.ops.merge_dev import (
-            build_triples_packed,
-            merge_lrt,
-            pack16_ok,
-        )
-
-        t0 = time.perf_counter()
-        keys, count, _N = build_triples_packed(
-            kmers_list, counts_list, nbc, pack16=pack16_ok(counts_list)
-        )
-        self.phases.add("build", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        n_distinct, hit_keys, hit_sums = merge_lrt(
-            torch.from_numpy(keys).to(self.device),
-            torch.from_numpy(count).to(self.device),
-            self.params.ratio_c, self.params.ratio_k, self.params.lr_min,
-        )
-        out = (n_distinct, *self._unpack_blob(hit_keys, hit_sums))
-        self.phases.add("device", time.perf_counter() - t0)
-        return out
 
 
 class GlobalMerge:

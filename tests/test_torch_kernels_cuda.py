@@ -1,8 +1,10 @@
-"""The four CUDA kernels of kmdiff_tpu_torch against their plain PyTorch
-twins on the card, at small shapes with edge cases (empty inputs, ragged
-tails, runs that cross tiles, k=1 and k=32); K-CMP also at five densities
-from none to all rows, at more tiles than the card holds resident, on
-misaligned views, on reused memory and from four host threads. They need
+"""The CUDA kernels of kmdiff_tpu_torch against their plain PyTorch twins
+on the card, at small shapes with edge cases (empty inputs, ragged tails,
+runs that cross tiles, k=1 and k=32); K-CMP also at five densities from
+none to all rows, at more tiles than the card holds resident, on
+misaligned views, on reused memory and from four host threads; K-ASM with
+1, 2 and 20 streams, empty slices and both packings; K-WRUN with runs of 1
+to 7 rows and hard-min; K-HIST empty, ragged and all above 255. They need
 an NVIDIA GPU and nvcc, and skip without one; run them on the card with
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
@@ -19,6 +21,7 @@ from kmdiff_tpu_torch import kernels
 from kmdiff_tpu_torch.ops import codec
 from kmdiff_tpu_torch.ops.lrt_kernel import lrt_filter, lrt_filter_plain
 from kmdiff_tpu_torch.ops.merge_dev import build_triples_packed, merge_lrt
+from kmdiff_tpu_torch.pipeline import fused
 
 pytestmark = pytest.mark.cuda
 
@@ -221,3 +224,95 @@ def test_wrappers_refuse_cpu_only_layouts(dev):
     with pytest.raises(ValueError):
         codec.compact(torch.ones(4, dtype=torch.bool, device=dev),
                       torch.zeros(4, dtype=torch.int64))
+
+
+def _streams(rng, S, dev, top):
+    pool = np.unique(rng.integers(-(2**62), 2**62, 60_000))
+    keys, counts = [], []
+    for s in range(S):
+        U = int(rng.integers(0, 5000)) if s % 3 == 1 else int(rng.integers(1, 9000))
+        keys.append(torch.from_numpy(np.sort(rng.choice(pool, U, replace=False))).to(dev))
+        counts.append(torch.from_numpy(
+            rng.integers(1, top, U, dtype=np.int64).astype(np.uint32).view(np.int32)).to(dev))
+    return keys, counts
+
+
+@pytest.mark.parametrize("pack16", [True, False])
+@pytest.mark.parametrize("S", [1, 2, 20])
+def test_assemble_chunk(dev, S, pack16):
+    rng = np.random.default_rng(S * 2 + pack16)
+    keys, counts = _streams(rng, S, dev, 2**15 if pack16 else 2**32)
+    Us = np.array([k.numel() for k in keys])
+    starts = (rng.random(S) * Us // 2).astype(np.int64)
+    lens = (rng.random(S) * (Us - starts)).astype(np.int64)
+    lens[S // 2] = 0
+    if S > 2:
+        starts[-1], lens[-1] = 0, Us[-1]  # one whole stream
+    before = kernels.launch_counts()["assemble_chunk"]
+    got = fused.assemble_chunk(keys, counts, starts, lens, max(1, S // 2), pack16)
+    want = fused.assemble_chunk_plain(keys, counts, starts, lens, max(1, S // 2), pack16)
+    launched = kernels.launch_counts()["assemble_chunk"] - before
+    assert launched == (1 if lens.sum() else 0)
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+    empty = fused.assemble_chunk(keys, counts, starts, np.zeros(S, np.int64), 0, pack16)
+    assert empty[0].numel() == 0 and empty[1].numel() == 0
+
+
+@pytest.mark.parametrize("hard_min", [1, 2, 5])
+def test_weighted_runs_and_dedup_sum(dev, hard_min):
+    """Seven overlapping distinct streams: runs of 1 to 7 rows."""
+    rng = np.random.default_rng(hard_min)
+    pool = np.unique(rng.integers(-(2**62), 2**62, 30_000))
+    keys = np.concatenate([rng.choice(pool, 12_000, replace=False) for _ in range(7)])
+    w = rng.integers(1, 4, len(keys)).astype(np.uint32)
+    w[::101] = np.uint32(2**31 + 5)  # u32 weights above the int32 range
+    w[::101][1::2] = 1
+    kd = torch.from_numpy(keys).to(dev)
+    wd = torch.from_numpy(w.view(np.int32)).to(dev)
+    keys_s, perm = torch.sort(kd)
+    flags, n_valid = codec.run_flags(keys_s)
+    starts, _ = codec.compact(flags)
+    lens = codec.run_lengths(starts, n_valid)
+    assert int(lens.min()) == 1 and int(lens.max()) == 7
+    _eq(codec.weighted_run_sums(starts, n_valid, perm, wd),
+        codec.weighted_run_sums_plain(starts, n_valid, perm, wd))
+    small = torch.from_numpy(rng.integers(1, 4, len(keys)).astype(np.int32)).to(dev)
+    got = codec.dedup_sum(kd, small, hard_min=hard_min, with_hist=True)
+    want = codec.dedup_sum(kd.cpu(), small.cpu(), hard_min=hard_min, with_hist=True)
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+    assert (got[2].n_valid, got[2].max_count) == (want[2].n_valid, want[2].max_count)
+    np.testing.assert_array_equal(got[2].hist, want[2].hist)
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 100_003, 1_000_001])
+def test_abundance_hist(dev, n):
+    rng = np.random.default_rng(n)
+    counts = rng.integers(1, 5, n).astype(np.uint32)
+    counts[::7] = rng.integers(200, 2**32, len(counts[::7]), dtype=np.uint64)
+    c = torch.from_numpy(counts.view(np.int32)).to(dev)
+    _eq(codec.abundance_hist(c), codec.abundance_hist_plain(c))
+    above = torch.from_numpy(
+        rng.integers(256, 2**32, n, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(dev)
+    h = codec.abundance_hist(above)
+    _eq(h, codec.abundance_hist_plain(above))
+    assert int(h[256]) == n and int(h[:256].sum()) == 0
+
+
+@pytest.mark.parametrize("sort_rows,hard_min", [(1 << 24, 1), (5000, 2)])
+def test_count_sample_resident_cuda_matches_cpu(dev, monkeypatch, sort_rows, hard_min):
+    from kmdiff_tpu_torch.pipeline import count as count_mod
+
+    monkeypatch.setattr(count_mod, "SORT_ROWS", sort_rows)
+    rng = np.random.default_rng(sort_rows)
+    codes = rng.integers(0, 4, 30_000).astype(np.uint8)
+    codes[rng.random(len(codes)) < 0.01] = codec.INVALID
+    codes[5000:25000] = np.tile(codes[:100], 200)
+    got = fused.count_sample_resident([codes], 31, hard_min, dev)
+    want = fused.count_sample_resident([codes], 31, hard_min, torch.device("cpu"))
+    _eq(got.keys, want.keys)
+    _eq(got.counts, want.counts)
+    assert (got.U, got.max_count, got.n_distinct_pre, got.total_mass) == (
+        want.U, want.max_count, want.n_distinct_pre, want.total_mass)
+    np.testing.assert_array_equal(got.hist_uvec, want.hist_uvec)

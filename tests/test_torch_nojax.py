@@ -1,7 +1,8 @@
 """The port never imports JAX: in a fresh interpreter that refuses and
-records every `jax` import, kmdiff_tpu_torch simulates, counts and diffs a
-tiny cohort on the CPU, and no import of JAX was even attempted (on a
-machine where JAX is installed, an attempt would load it)."""
+records every `jax` import, kmdiff_tpu_torch simulates, counts, diffs and
+runs (the fused count -> diff) a tiny cohort on the CPU, and no import of
+JAX was even attempted (on a machine where JAX is installed, an attempt
+would load it)."""
 
 import os
 import pathlib
@@ -41,6 +42,14 @@ _SCRIPT = textwrap.dedent("""
                  "-1", "2", "-2", "2", "--output-dir", os.path.join(root, "out"),
                  "--threads", "1"], device="cpu") == 0
     assert os.path.exists(os.path.join(root, "out", "case_kmers.fasta"))
+    assert main(["run", "--file", os.path.join(root, "sim", "fof.txt"),
+                 "-d", os.path.join(root, "run_f"), "-k", "21", "-1", "2",
+                 "-2", "2", "-o", os.path.join(root, "out_f"),
+                 "--threads", "1"], device="cpu") == 0
+    for name in ("control_kmers.fasta", "case_kmers.fasta", "options.json"):
+        with open(os.path.join(root, "out", name), "rb") as a, \
+                open(os.path.join(root, "out_f", name), "rb") as b:
+            assert a.read() == b.read(), name
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib"))
     assert not loaded, loaded

@@ -137,12 +137,23 @@ def test_unported_diff_flags_raise(cohort, extra, tmp_path):
                    device="cpu")
 
 
+@pytest.mark.parametrize("extra", [
+    ["--pop-correction"], ["--save-sk"], ["--model", "x.py"],
+    ["--devices", "2"], ["-k", "33"],
+])
+def test_unported_run_flags_raise(cohort, extra, tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        torch_main(["run", "--file", str(cohort / "sim" / "fof.txt"), "-d",
+                    str(tmp_path / "kc"), "-1", "3", "-2", "3", "-o",
+                    str(tmp_path / "out"), *extra], device="cpu")
+    assert not (tmp_path / "kc").exists()
+
+
 def test_unported_commands_and_k_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="k > 32"):
         torch_main(["count", "--file", "f", "--run-dir", str(tmp_path),
                     "--kmer-size", "33"], device="cpu")
-    for cmd in (["run", "--file", "f", "-d", "d", "-1", "1", "-2", "1"],
-                ["infos"], ["warmup", "-1", "1", "-2", "1"]):
+    for cmd in (["infos"], ["warmup", "-1", "1", "-2", "1"]):
         with pytest.raises(NotImplementedError):
             torch_main(cmd, device="cpu")
 
