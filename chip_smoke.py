@@ -6,17 +6,25 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds the port's seven CUDA kernels from csrc/ with nvcc
+   versions, and builds the port's eleven CUDA kernels from csrc/ with nvcc
    (one nvcc a source, all at once).
 2. Holds each kernel against its plain PyTorch twin on the card at the
    main path's shapes and prints both median times (CUDA events); K-CMP
    at its dense shape (run starts) and its sparse one (LRT survivors),
    with its achieved bandwidth and its launches and host syncs a call;
-   K-ASM on 20 streams into a ~2^24-row chunk in both packings, K-WRUN
+   K-ASM on 20 streams into a ~2^24-row chunk in both packings and with
+   the full merge's sample ids, K-WRUN
    on three overlapping 2^22-key streams with hard-min 2, K-HIST on 2^23
-   counts with a tail above 255. Integers must be equal; lr within rtol
-   1e-6 and atol 1e-6; keep equal except where the margin-adjusted lr
-   lies within 1e-5*max(1, lr) of lr_min.
+   counts with a tail above 255; K-GENO on 2^23 run keys at rates 0.001 and
+   0.05, K-ROWS for ~13,700 survivors and ~12,000 sampled starts of 2^23
+   sorted rows from 20 streams, K-GRAM on [2^20, 20] and [2^18, 200] 0/1
+   blocks, K-IRLS on 2^14 conditioned alt designs at n = 20, F = 5 and
+   n = 200, F = 12 (one singular item, one separable). Integers and masks
+   must be equal; lr within rtol 1e-6 and atol 1e-6; keep equal except
+   where the margin-adjusted lr lies within 1e-5*max(1, lr) of lr_min;
+   K-IRLS's stop codes equal, its iteration counts equal on 99% of the
+   items, ll within rtol 1e-5 and atol 1e-4, or within 5e-4 for the fits
+   that separate their labels (ll > -0.05 on both sides: no maximum).
 3. Drives count + diff through the port's CLI: popsim of the bench cohort
    (10 controls + 10 cases, 2^23 bp genome, 150 bp reads, coverage 1, error
    rate 0.001, seed 7), `count` (k=31, 4 partitions, hard-min 1) and `diff`
@@ -32,6 +40,19 @@ Run from the root of a checkout, with no arguments:
    SORT_ROWS lowered to 2^22 - 128, so that every sample counts in two
    chunks and K-WRUN merges them, whose FASTA must equal phase 3's loose
    `diff`. Both must be served by the fused path and launch its kernels.
+5. Population-stratification correction on phase 3's run directory with
+   `-s 0.001 --cutoff 1 -c disabled --pop-correction --save-sk` and the
+   default `--kmer-pca 0.001 --n-pc 2`: (a) `diff` on CUDA, which must
+   launch K-ROWS, K-GENO, K-GRAM, K-IRLS and K-LRT, then on the CPU: the
+   popstrat artifacts (.geno, .snp, .ind, .total, parfile.txt, pcs.evec)
+   and the --save-sk matrices byte-identical, the FASTA the same k-mers
+   with p-values within 1% relative, but for at most KNIFE_EDGES_MAX
+   quasi-separated fits that f32 IRLS drove to p = 1 on one side, split
+   between the sides, which an f64 refit of every alt model judges: the
+   kernel's significant set no further from the f64 one than its twin's;
+   (b) `run` with the same flags on CUDA,
+   served by the fused path with K-ASM: FASTA and pcs.evec byte-identical
+   to (a)'s CUDA output, the .geno the same multiset of rows.
 
 Exits non-zero, printing no result, without CUDA or without the rest of the
 checkout. The last line of standard output is the result:
@@ -223,7 +244,149 @@ def compare_kernels(dev) -> dict:
     out["assemble_chunk"] = compare_assemble(dev)
     out["weighted_runs"] = compare_weighted_runs(dev)
     out["abundance_hist"] = compare_hist(dev, rng)
+    out["geno_sample"] = compare_geno(dev, rng)
+    out["run_rows"] = compare_rows(dev, rng)
+    out["int_gram"] = compare_gram(dev, rng)
+    out["irls"] = compare_irls(dev, rng)
     return out
+
+
+def compare_geno(dev, rng):
+    """K-GENO on 2^23 run keys at the default kmer_pca and a high one."""
+    import numpy as np
+    import torch
+
+    from kmdiff_tpu_torch.ops import merge_dev
+
+    keys = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, 1 << 23,
+                                         dtype=np.int64)).to(dev)
+    res = {}
+    for rate in (0.001, 0.05):
+        thr = merge_dev.pca_threshold_u32(rate)
+        mask = merge_dev.geno_sample(keys, thr, 0)
+        check_equal(f"geno_sample {rate}", mask,
+                    merge_dev.geno_sample_plain(keys, thr, 0))
+        ms = median_ms(lambda: merge_dev.geno_sample(keys, thr, 0))
+        plain = median_ms(lambda: merge_dev.geno_sample_plain(keys, thr, 0))
+        print(f"[K-GENO] geno_sample 2^23 keys at {rate} ({int(mask.sum())} "
+              f"sampled): kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        res[rate] = (ms, plain, 0.0)
+    return res[0.001]
+
+
+def compare_rows(dev, rng):
+    """K-ROWS at the popstrat merge's shape: 2^23 sorted rows from 20
+    streams, ~13,700 survivor runs and ~12,000 sampled ones."""
+    import numpy as np
+    import torch
+
+    from kmdiff_tpu_torch.ops import codec, merge_dev
+
+    S = N_CONTROLS + N_CASES
+    keys, counts = _random_streams(dev, S, (1 << 23) // S, 13, 1 << 12)
+    sample = torch.cat([torch.full((k.numel(),), s, dtype=torch.int16, device=dev)
+                        for s, k in enumerate(keys)])
+    count = torch.cat([c | (torch.iinfo(torch.int32).min if s < N_CONTROLS else 0)
+                       for s, c in enumerate(counts)])
+    keys_s, perm = torch.sort(torch.cat(keys))
+    flags, n_valid = codec.run_flags(keys_s)
+    starts, _ = codec.compact(flags)
+    U = starts.numel()
+    res = {}
+    for label, n_sel, presence in (("survivors", 13_700, False),
+                                   ("sampled", 12_000, True)):
+        sel = torch.from_numpy(np.sort(rng.choice(U, n_sel, replace=False))).to(dev)
+        args = (starts, n_valid, sel, perm, count, sample, S, presence)
+        check_equal(f"run_rows {label}", merge_dev.run_rows(*args),
+                    merge_dev.run_rows_plain(*args))
+        ms = median_ms(lambda: merge_dev.run_rows(*args))
+        plain = median_ms(lambda: merge_dev.run_rows_plain(*args))
+        print(f"[K-ROWS] run_rows {n_sel} {label} of {U} runs of "
+              f"{keys_s.numel()} rows, S={S}{' (presence)' if presence else ''}: "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        res[label] = (ms, plain, 0.0)
+    return res["survivors"]
+
+
+def compare_gram(dev, rng):
+    """K-GRAM on the geno blocks of a 20- and a 200-sample cohort."""
+    import numpy as np
+    import torch
+
+    from kmdiff_tpu_torch.ops import pca
+
+    res = {}
+    for B, S in ((1 << 20, 20), (1 << 18, 200)):
+        X = torch.from_numpy((rng.random((B, S)) < 0.4).astype(np.uint8)).to(dev)
+        check_equal(f"int_gram [{B}, {S}]", pca.int_gram(X), pca.int_gram_plain(X))
+        ms = median_ms(lambda: pca.int_gram(X))
+        plain = median_ms(lambda: pca.int_gram_plain(X))
+        print(f"[K-GRAM] int_gram [{B}, {S}]: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms")
+        res[S] = (ms, plain, 0.0)
+    return res[20]
+
+
+#: K-IRLS against its twin, for fits that separate their labels: twice the
+#: largest gap between the two on the card at n = 20, F = 5 (2.46e-4, NVIDIA
+#: H100 80GB HBM3, 700 W); every other fit is held to rtol 1e-5 / atol 1e-4
+IRLS_SEP_ATOL = 5e-4
+
+
+def compare_irls(dev, rng):
+    """K-IRLS on 2^14 popstrat alt fits: a conditioned shared design
+    [1 | PCs | totals] and each item's centered, max-abs-scaled count-ratio
+    column; item 0 constant (singular), item 1 separating the labels."""
+    import numpy as np
+    import torch
+
+    from kmdiff_tpu_torch.ops import glm
+    from kmdiff_tpu_torch.pipeline.popstrat import _condition_design
+
+    B = 1 << 14
+    res = {}
+    for n, F in ((20, 5), (200, 12)):
+        y = np.concatenate([np.ones(n // 2), np.zeros(n - n // 2)])
+        X = np.column_stack([np.ones(n), rng.normal(0, 0.2, (n, F - 3)),
+                             rng.uniform(5.9e6, 6.1e6, n)])
+        Xc, _c, _s = _condition_design(X)
+        Xb = np.column_stack([Xc, np.zeros(n)])
+        r = rng.poisson(20.0 + 3.0 * y * (rng.random((B, 1)) < 0.3), (B, n))
+        r = r / rng.uniform(5.9e6, 6.1e6, n)
+        r[0] = 1.0
+        r[1] = np.where(y == 1, 2.0, 1.0)
+        r = r - r.mean(1, keepdims=True)
+        r = r / np.maximum(np.abs(r).max(1, keepdims=True), 1e-300)
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+        args = (t(Xb)[None].contiguous(), t(r), t(y), 500)
+        w, _e, it, ll, stop = glm.irls(*args)
+        _w, _e, it_p, ll_p, stop_p = glm.irls_plain(*args)
+        torch.cuda.synchronize()
+        check_equal(f"irls n={n} stop codes", stop, stop_p)
+        same_it = float((it == it_p).float().mean())
+        if same_it < 0.99:
+            raise AssertionError(f"irls n={n}: iters equal on {same_it:.4f}")
+        # a fit that separates its labels has no maximum: its ll creeps to
+        # 0 until the stop rule fires, and the two sides' f32 roundings
+        # stop it at slightly different places; those are held to
+        # IRLS_SEP_ATOL
+        sep = (ll > -0.05) & (ll_p > -0.05)
+        close = torch.isclose(ll, ll_p, rtol=1e-5, atol=1e-4)
+        if not bool((close | (sep & ((ll - ll_p).abs() <= IRLS_SEP_ATOL))).all()):
+            raise AssertionError(f"irls n={n}: ll outside rtol 1e-5 / atol 1e-4 "
+                                 f"({IRLS_SEP_ATOL} for separable fits)")
+        if int(stop[0]) != 1 or not bool(torch.isfinite(w).all()):
+            raise AssertionError(f"irls n={n}: the singular item did not freeze")
+        err = float((ll - ll_p).abs().max())
+        ms = median_ms(lambda: glm.irls(*args), reps=7, warmup=1)
+        plain = median_ms(lambda: glm.irls_plain(*args), reps=5, warmup=1)
+        print(f"[K-IRLS] irls {B} items n={n} F={F}: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms; iters {int(it.min())}-{int(it.max())} (equal on "
+              f"{same_it:.4%}), stops {torch.bincount(stop.long(), minlength=3).tolist()}, "
+              f"{int(sep.sum())} separable, {int((~close).sum())} of them beyond "
+              f"atol 1e-4, max|dll| {err:.3g}")
+        res[n] = (ms, plain, err)
+    return res[20]
 
 
 def _random_streams(dev, S, U, seed, top):
@@ -255,15 +418,17 @@ def compare_assemble(dev):
     lens[3] = 0  # a stream with nothing in this key range
     starts = rng.integers(0, U - lens + 1)
     res = {}
-    for pack16, top in ((True, 1 << 15), (False, 1 << 32)):
+    # the full merge's chunks (popstrat, --save-sk) are p32 with sample ids
+    for name, pack16, top, ids in (("p16", True, 1 << 15, False),
+                                   ("p32", False, 1 << 32, False),
+                                   ("p32 + sample ids", False, 1 << 31, True)):
         keys, counts = _random_streams(dev, S, U, 3, top)
-        args = (keys, counts, starts, lens, N_CONTROLS, pack16)
+        args = (keys, counts, starts, lens, N_CONTROLS, pack16, ids)
         got, want = assemble_chunk(*args), assemble_chunk_plain(*args)
-        check_equal("assemble_chunk keys", got[0], want[0])
-        check_equal("assemble_chunk counts", got[1], want[1])
+        for part, g, w in zip(("keys", "counts", "sample ids"), got, want):
+            check_equal(f"assemble_chunk {name} {part}", g, w)
         ms = median_ms(lambda: assemble_chunk(*args))
         plain = median_ms(lambda: assemble_chunk_plain(*args))
-        name = "p16" if pack16 else "p32"
         print(f"[K-ASM] assemble_chunk {S} streams -> {int(lens.sum())} rows "
               f"({name}): kernel {ms:.4f} ms, plain {plain:.4f} ms")
         res[name] = (ms, plain, 0.0)
@@ -578,6 +743,250 @@ def run_fused(dev, phase3) -> dict:
     return out
 
 
+#: the kernels popstrat adds to a path
+POP_KERNELS = ("run_rows", "geno_sample", "int_gram", "irls", "lrt_filter")
+POP_ARTIFACTS = ("gwas_eigenstratX.geno", "gwas_eigenstratX.snp",
+                 "gwas_eigenstratX.ind", "gwas_eigenstratX.total", "control.ind",
+                 "case.ind", "parfile.txt", "pcs.evec")
+
+
+def _pvals(out):
+    ps = {}
+    for g in ("control", "case"):
+        for name, seq in _read_fasta(os.path.join(out, f"{g}_kmers.fasta")):
+            ps[(g, seq)] = float(name.split("pval=")[1].split("_")[0])
+    return ps
+
+
+#: the popstrat `diff`s on CUDA and on the CPU: at most this many corrected
+#: k-mers (bar those within 1% of alpha) in one FASTA only, as measured on
+#: the bench cohort (NVIDIA H100 80GB HBM3, 700 W); each one a quasi-separated
+#: alt fit that f32 IRLS drove to p = 1 on one side only
+KNIFE_EDGES_MAX = 50
+
+
+def _fasta_keys(out) -> dict:
+    """{canonical int64 key: p-value} of a `diff`'s two FASTA files."""
+    import numpy as np
+    import torch
+
+    from kmdiff_tpu_torch.ops import codec
+
+    ps = _pvals(out)
+    if not ps:
+        return {}
+    text = np.frombuffer("N".join(seq for _g, seq in ps).encode(), np.uint8)
+    codes = torch.from_numpy(codec.encode_ascii_block(text))
+    keys = codec.canonical_kmers_plain(codes, 31)[::32]
+    return dict(zip(keys.tolist(), ps.values()))
+
+
+def _refit(dev, opt, run_dir, gpu_out, cpu_out):
+    """Refit the alt model of every k-mer the popstrat `diff`s corrected
+    (the CUDA run's kept spills) three ways: K-IRLS with the CUDA run's
+    null fit and its twin on the CPU with the CPU run's, both in f32 as the
+    two runs fitted them; and, as a witness that shares no f32 rounding
+    with either, the twin on the card in f64 with its own f64 null fit.
+    Returns (keys [H] int64, {"gpu" | "cpu" | "f64": p-values [H]})."""
+    import numpy as np
+    import torch
+
+    from kmdiff_tpu_torch.cmd.diff import read_config
+    from kmdiff_tpu_torch.ops import codec, glm
+    from kmdiff_tpu_torch.pipeline.popstrat import (
+        FileAccumulator,
+        KmerSignBlock,
+        _condition_design,
+        chi2_sf1,
+        load_corrector,
+    )
+
+    config = read_config(run_dir)
+    blocks = []
+    for p in range(config.nb_partitions):
+        acc = FileAccumulator(os.path.join(gpu_out, "partitions", f"p{p}_uncorrected"),
+                              config.kmer_size, read=True,
+                              nb_samples=N_CONTROLS + N_CASES)
+        blocks.extend(acc.blocks())
+    blk = KmerSignBlock.concat(blocks)
+    ps = {}
+    for label, where, out in (("gpu", dev, gpu_out),
+                              ("cpu", torch.device("cpu"), cpu_out)):
+        sub = KmerSignBlock(blk.kmers, blk.pvalues.copy(), blk.signs,
+                            blk.mean_control, blk.mean_case, blk.counts_ratio)
+        load_corrector(opt, config, os.path.join(out, "popstrat"),
+                       where).correct_block(sub)
+        ps[label] = sub.pvalues
+
+    # the f64 witness: PopStratCorrector.correct_block's designs and LLR
+    corr = load_corrector(opt, config, os.path.join(gpu_out, "popstrat"), dev)
+
+    def t64(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
+                               device=dev)
+
+    y = t64(corr.Y)
+    null_c, _c, _s = _condition_design(corr.null_features)
+    ll0 = float(glm.irls_plain(t64(null_c[None]), None, y,
+                               corr.max_iteration)[3][0])
+    shared, _c, _s = _condition_design(corr.alt_features[:, :-1])
+    r = blk.counts_ratio / corr.totals[None, :]
+    r = r - r.mean(axis=1, keepdims=True)
+    r = r / np.maximum(np.abs(r).max(axis=1, keepdims=True), 1e-300)
+    ll1 = glm.irls_plain(t64(np.column_stack([shared, np.zeros(corr.size)])[None]),
+                         t64(r), y, corr.max_iteration)[3].cpu().numpy()
+    llr = -2.0 * (ll0 - ll1)
+    llr = np.where((np.abs(llr) < corr.epsilon) | (llr < 0.0) | ~np.isfinite(ll1),
+                   0.0, llr)
+    ps["f64"] = chi2_sf1(llr)
+    return codec.words_to_keys(blk.kmers), ps
+
+
+def check_popstrat_fasta(dev, opt, run_dir, gpu, cpu, alpha) -> str:
+    """Phase 5(a)'s FASTA check, CUDA against CPU: every alt fit refitted
+    (_refit) must give its run's FASTA; the k-mers in both FASTA agree
+    within 1% relative; the ones in one only, bar those within 1% of
+    alpha, are at most KNIFE_EDGES_MAX, neither side holding under a
+    quarter of them, each p = 1 on one side; the f64 refit, which shares
+    no f32 rounding with either side, must side with each on at least a
+    quarter of them, and the kernel's significant set must lie no further
+    from the f64 one than its twin's."""
+    import numpy as np
+
+    got, want = _fasta_keys(gpu), _fasta_keys(cpu)
+    keys, ps = _refit(dev, opt, run_dir, gpu, cpu)
+    sig = {k: set(keys[p < alpha].tolist()) for k, p in ps.items()}
+    if sig["gpu"] != set(got) or sig["cpu"] != set(want):
+        raise AssertionError("popstrat diff: the refitted alt models do not "
+                             "give the FASTA's k-mers")
+    both = set(got) & set(want)
+    rel = max((abs(got[k] - want[k]) / want[k] for k in both if want[k] > 0),
+              default=0.0)
+    if rel > 0.01:
+        raise AssertionError(f"popstrat diff: p-values {rel:.3g} apart (relative)")
+    near = {k for k, p in {**got, **want}.items() if abs(p - alpha) <= 0.01 * alpha}
+    gpu_only = set(got) - set(want) - near
+    cpu_only = set(want) - set(got) - near
+    only = gpu_only | cpu_only
+    if len(only) > KNIFE_EDGES_MAX or 4 * min(len(gpu_only), len(cpu_only)) < len(only):
+        raise AssertionError(f"popstrat diff: {len(gpu_only)} k-mers on CUDA "
+                             f"only, {len(cpu_only)} on the CPU only (at most "
+                             f"{KNIFE_EDGES_MAX}, neither side under a quarter)")
+    at = np.isin(keys, np.fromiter(only, np.int64, len(only)))
+    if not (np.maximum(ps["gpu"][at], ps["cpu"][at]) == 1.0).all():
+        raise AssertionError("popstrat diff: a k-mer in one FASTA only is no "
+                             "knife edge of f32 IRLS (p = 1 on one side)")
+    right = {s: sum((k in sig[s]) == (k in sig["f64"]) for k in only)
+             for s in ("gpu", "cpu")}
+    miss = {s: len(sig[s] ^ sig["f64"]) for s in ("gpu", "cpu")}
+    if 4 * min(right.values()) < len(only) or miss["gpu"] > miss["cpu"]:
+        raise AssertionError(f"popstrat diff: against the f64 refit, CUDA is "
+                             f"right on {right['gpu']} of the {len(only)} k-mers "
+                             f"in one FASTA only and the CPU on {right['cpu']}; "
+                             f"CUDA's set is {miss['gpu']} k-mers off f64's, the "
+                             f"CPU's {miss['cpu']}")
+    return (f"{len(both)} k-mers in both FASTA, p-values within {rel:.3g} "
+            f"relative; {len(gpu_only)} on CUDA only and {len(cpu_only)} on the "
+            f"CPU only, each p = 1 on one side (quasi-separated); the f64 "
+            f"refit sides with CUDA on {right['gpu']} of them, with the CPU on "
+            f"{right['cpu']}; f64's significant set ({len(sig['f64'])}) differs "
+            f"from CUDA's by {miss['gpu']} k-mers, from the CPU's by "
+            f"{miss['cpu']}; {len((set(got) ^ set(want)) & near)} within 1% of "
+            "alpha in one only")
+
+
+def run_popstrat(dev, phase3) -> dict:
+    """Phase 5: diff (CUDA, then CPU) and run (CUDA) with popstrat and
+    --save-sk; returns the CUDA diff's launch counts."""
+    import torch
+
+    from kmdiff_tpu_torch import kernels
+    from kmdiff_tpu_torch.cli import count_options, diff_options, parse_args
+    from kmdiff_tpu_torch.cmd.diff import main_diff
+    from kmdiff_tpu_torch.cmd.run import main_run
+
+    loose = ["-1", str(N_CONTROLS), "-2", str(N_CASES), "--threads", "4", "-s",
+             "0.001", "--cutoff", "1", "-c", "disabled"]
+    flags = [*loose, "--pop-correction", "--save-sk", "--keep-tmp"]
+    # the same diff without popstrat, in this call, as the reference wall
+    t0 = time.perf_counter()
+    main_diff(diff_options(parse_args(
+        ["diff", "--km-run-dir", phase3["run"], *loose, "--output-dir",
+         os.path.join(WORK, "pop_base")])), dev)
+    print(f"[popstrat base] loose diff without popstrat: "
+          f"{time.perf_counter() - t0:.3f} s wall (CUDA)")
+    outs, launches = {}, {}
+    for label, where in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        out = os.path.join(WORK, f"pop_{label}")
+        args = parse_args(["diff", "--km-run-dir", phase3["run"], *flags,
+                           "--output-dir", out])
+        timings = {}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = main_diff(diff_options(args), where, timings)
+        wall = time.perf_counter() - t0
+        launches[label] = kernels.launch_counts()
+        print(f"[popstrat diff {label}] {wall:.3f} s wall (PCA "
+              f"{timings['pca']:.3f} s, null fit {timings['null_fit']:.3f} s, "
+              f"alt fits {timings['alt_fits']:.3f} s); {res['total_kmers']} "
+              f"k-mers tested, significant {res['control']} control / "
+              f"{res['case']} case; launches {launches[label]}")
+        outs[label] = out
+    require_launches("popstrat diff", launches["gpu"], POP_KERNELS)
+    gpu, cpu = outs["gpu"], outs["cpu"]
+    for name in POP_ARTIFACTS:
+        if not _same_bytes(os.path.join(gpu, "popstrat", name),
+                           os.path.join(cpu, "popstrat", name)):
+            raise AssertionError(f"popstrat diff {name}: CUDA and CPU differ")
+    mdir = os.path.join("positive_kmer_matrix", "matrices")
+    mats = sorted(os.listdir(os.path.join(gpu, mdir)))
+    if not mats or mats != sorted(os.listdir(os.path.join(cpu, mdir))):
+        raise AssertionError(f"popstrat diff: --save-sk matrices {mats}")
+    for name in mats:
+        if not _same_bytes(os.path.join(gpu, mdir, name),
+                           os.path.join(cpu, mdir, name)):
+            raise AssertionError(f"popstrat diff {name}: CUDA and CPU differ")
+    # the alt fits are f32 with other summation orders on the two sides: a
+    # k-mer whose p-value lies within 1% of alpha may fall on either side,
+    # and so may one whose fit is quasi-separated (check_popstrat_fasta)
+    report = check_popstrat_fasta(dev, diff_options(args), phase3["run"], gpu,
+                                  cpu, 0.001)
+    print(f"[check] popstrat diff: artifacts and {len(mats)} --save-sk matrices "
+          f"byte-identical CUDA vs CPU; {report}")
+
+    run_dir = os.path.join(WORK, "pop_run")
+    out = os.path.join(WORK, "pop_run_out")
+    args = parse_args(["run", "--file", phase3["fof"], "--kmer-size", "31",
+                       "--hard-min", "1", "--nb-partitions", "4", *flags,
+                       "--run-dir", run_dir, "--output-dir", out])
+    timings = {}
+    kernels.reset_launch_counts()
+    res = main_run(count_options(args), diff_options(args), dev,
+                   recurrence_min=args.recurrence_min,
+                   count_files=not args.no_count_files, timings=timings)
+    run_launches = kernels.launch_counts()
+    if "merge" not in timings:
+        raise AssertionError("popstrat run was not served by the fused path")
+    require_launches("popstrat run", run_launches,
+                     (*POP_KERNELS, "assemble_chunk"))
+    for name in ("control_kmers.fasta", "case_kmers.fasta",
+                 os.path.join("popstrat", "pcs.evec")):
+        if not _same_bytes(os.path.join(out, name), os.path.join(gpu, name)):
+            raise AssertionError(f"popstrat run {name} differs from diff's")
+    geno = [sorted(open(os.path.join(d, "popstrat", "gwas_eigenstratX.geno"))
+                   .read().splitlines()) for d in (out, gpu)]
+    if geno[0] != geno[1]:
+        raise AssertionError("popstrat run: .geno rows differ from diff's")
+    print(f"[popstrat run] count {timings['count']:.3f} s, merge "
+          f"{timings['merge']:.3f} s, PCA {timings['pca']:.3f} s, null fit "
+          f"{timings['null_fit']:.3f} s, alt fits {timings['alt_fits']:.3f} s, "
+          f"total {timings['total']:.3f} s (wall, CUDA); significant "
+          f"{res['control']} control / {res['case']} case; FASTA and pcs.evec "
+          f"byte-identical to diff's, {len(geno[0])} .geno rows, the same "
+          f"multiset; launches {run_launches}")
+    return launches["gpu"]
+
+
 def main() -> int:
     import torch
 
@@ -611,6 +1020,7 @@ def main() -> int:
         timings = compare_kernels(dev)
         phase3 = run_main_path(dev)
         fused_launches = run_fused(dev, phase3)
+        pop_launches = run_popstrat(dev, phase3)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
@@ -627,6 +1037,10 @@ def main() -> int:
                            fused_launches["a"]),
         "weighted_runs": ("kmdiff_tpu/ops/codec.py:396", fused_launches["b"]),
         "abundance_hist": ("kmdiff_tpu/ops/codec.py:418", fused_launches["a"]),
+        "run_rows": ("kmdiff_tpu/ops/merge_dev.py:302", pop_launches),
+        "geno_sample": ("kmdiff_tpu/ops/merge_dev.py:39", pop_launches),
+        "int_gram": ("kmdiff_tpu/ops/pca.py:47", pop_launches),
+        "irls": ("kmdiff_tpu/ops/glm.py:45", pop_launches),
     }
     rows = []
     for name, (replaces, launches) in meta.items():

@@ -48,13 +48,8 @@ def _reject_unported(args) -> None:
         raise _unported("--profile", "item 9: the H100 bench and its traces")
     if args.command in ("count", "run") and args.kmer_size > 32:
         raise _unported(f"--kmer-size {args.kmer_size}", "item 2: k > 32")
-    if args.command in ("diff", "run"):
-        if args.pop_correction:
-            raise _unported("--pop-correction", "item 5: popstrat")
-        if args.model_lib_path:
-            raise _unported("--model", "item 6: plugins")
-        if args.save_sk:
-            raise _unported("--save-sk", "item 4: --save-sk and geno rows")
+    if args.command in ("diff", "run") and args.model_lib_path:
+        raise _unported("--model", "item 6: plugins")
 
 
 def count_options(args):
@@ -89,6 +84,7 @@ def diff_options(args):
         correction=correction_type_from_str(args.correction),
         in_memory=args.in_memory,
         kff=args.kff_output,
+        pop_correction=args.pop_correction,
         compat_popstrat=args.compat_popstrat,
         kmer_pca=args.kmer_pca,
         ploidy=args.ploidy,
@@ -104,7 +100,10 @@ def diff_options(args):
         keep_tmp=args.keep_tmp,
         seed=args.random_seed,
         log_size=args.log_factorial,
+        save_sk=args.save_sk,
         nb_threads=args.threads,
+        model_lib_path=args.model_lib_path,
+        model_config=args.model_config,
         n_devices=args.devices,
     )
 

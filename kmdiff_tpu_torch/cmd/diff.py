@@ -1,10 +1,12 @@
 """`diff`: the differential analysis (port of kmdiff_tpu/cmd/diff.py, single
-process, no popstrat). Stages:
+process). Stages:
 
   1. load the run dir's config and per-sample totals (histograms)
   2. resume detection against the options manifest and spilled partitions
-  3. per-partition merge + Poisson LR filter on the device (pipeline.merge)
-  4. multiple-testing correction + control/case FASTA|KFF
+  3. per-partition merge + Poisson LR filter on the device (pipeline.merge),
+     with --pop-correction the geno sample and the survivors' count rows
+  4. optional population-stratification correction (pipeline.popstrat)
+  5. multiple-testing correction + control/case FASTA|KFF
      (kmdiff_tpu.pipeline.aggregate)
 """
 
@@ -16,6 +18,7 @@ import torch
 
 from kmdiff_tpu.cmd.options import (
     REDO_MERGE,
+    REDO_POP,
     DiffOptions,
     compare_options,
     dump_options,
@@ -41,21 +44,29 @@ from kmdiff_tpu_torch.pipeline.merge import GlobalMerge, PartitionProcessor
 
 
 def _reject_unported(opt: DiffOptions) -> None:
-    unported = [
-        (opt.pop_correction, "--pop-correction", "item 5: popstrat"),
-        (opt.model_lib_path, "--model", "item 6: plugins"),
-        (opt.save_sk, "--save-sk", "item 4: --save-sk and geno rows"),
-    ]
-    for flag, name, item in unported:
-        if flag:
-            raise NotImplementedError(
-                f"{name} is not ported to kmdiff_tpu_torch yet "
-                f"(ROADMAP.md port queue {item})"
-            )
+    if opt.model_lib_path:
+        raise NotImplementedError(
+            "--model is not ported to kmdiff_tpu_torch yet "
+            "(ROADMAP.md port queue item 6: plugins)"
+        )
+
+
+def save_sk_dir(opt: DiffOptions) -> str | None:
+    """--save-sk's matrix directory, made; None without the flag."""
+    if not opt.save_sk:
+        return None
+    path = os.path.join(opt.output_directory, "positive_kmer_matrix", "matrices")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def nb_samples_of(opt: DiffOptions) -> int:
+    """The spills' count-row width: the cohort with popstrat, else 0."""
+    return opt.nb_controls + opt.nb_cases if opt.pop_correction else 0
 
 
 def _make_accumulators(opt: DiffOptions, nb_partitions: int, kmer_size: int,
-                       part_dir: str, read: bool):
+                       part_dir: str, read: bool, spill: str = "uncorrected"):
     if opt.in_memory and not read:
         # -m/--in-memory: significant k-mers stay in RAM, no spill files
         # (and so nothing to resume from)
@@ -64,17 +75,18 @@ def _make_accumulators(opt: DiffOptions, nb_partitions: int, kmer_size: int,
         return [VectorAccumulator() for _ in range(nb_partitions)]
     return [
         FileAccumulator(
-            os.path.join(part_dir, f"p{i}_uncorrected"),
+            os.path.join(part_dir, f"p{i}_{spill}"),
             kmer_size,
             read=read,
             delete_on_destroy=not opt.keep_tmp,
+            nb_samples=nb_samples_of(opt),
         )
         for i in range(nb_partitions)
     ]
 
 
-def do_diff(opt: DiffOptions, config, accumulators,
-            device: torch.device) -> int:
+def do_diff(opt: DiffOptions, config, accumulators, device: torch.device,
+            sampler=None) -> int:
     """Merge + test stage (reference: diff.hpp:66-164); returns the number
     of distinct k-mers tested."""
     timer = Timer()
@@ -91,6 +103,8 @@ def do_diff(opt: DiffOptions, config, accumulators,
     processor = PartitionProcessor(
         model, opt.nb_controls, opt.nb_cases,
         threshold=opt.threshold / opt.cutoff, device=device,
+        keep_counts=opt.pop_correction, sampler=sampler,
+        save_matrix_path=save_sk_dir(opt),
     )
     merger = GlobalMerge(
         processor, accumulators, nb_threads=opt.nb_threads,
@@ -138,10 +152,14 @@ def do_correction(opt: DiffOptions, config, accumulators,
     return c_controls, c_cases
 
 
-def main_diff(opt: DiffOptions, device: torch.device) -> dict:
+def main_diff(opt: DiffOptions, device: torch.device,
+              timings: dict | None = None) -> dict:
     """Orchestrator with resume (reference: diff.hpp:262-377): an unchanged
     rerun reuses the spilled partitions; a new threshold or cutoff redoes
-    the merge; a new correction only redoes the output."""
+    the merge; a new popstrat setting redoes the correction from the
+    merge's spills, and a rerun with intact popstrat spills aggregates the
+    corrected ones; a new correction only redoes the output. timings, when
+    given, receives popstrat's "pca", "null_fit" and "alt_fits" seconds."""
     _reject_unported(opt)
     whole = Timer()
     config = read_config(opt.kmtricks_dir)
@@ -158,27 +176,41 @@ def main_diff(opt: DiffOptions, device: torch.device) -> dict:
     manifest = os.path.join(opt.output_directory, "options.json")
 
     action = 0
-    prev_merge = prev_out = False
+    prev_merge = prev_pop = prev_out = False
     prev_opt = None
     if os.path.exists(manifest):
         prev_opt = load_options(manifest)
         action = compare_options(opt, prev_opt)
         prev_merge = partitions_exist("{}/p{}_uncorrected",
                                       config.nb_partitions, part_dir)
+        prev_pop = partitions_exist("{}/p{}_popstrat_uncorrected",
+                                    config.nb_partitions, part_dir)
         ext = "kff" if opt.kff else "fasta"
         prev_out = all(
             os.path.exists(os.path.join(opt.output_directory, f"{g}_kmers.{ext}"))
             for g in ("control", "case")
         )
-        logger.debug("resume: merge=%s output=%s action=%d",
-                     prev_merge, prev_out, action)
+        logger.debug("resume: merge=%s pop=%s output=%s action=%d",
+                     prev_merge, prev_pop, prev_out, action)
+
+    pop_dir = os.path.join(opt.output_directory, "popstrat")
+    if opt.pop_correction:
+        os.makedirs(pop_dir, exist_ok=True)
 
     redo_merge = not prev_merge or bool(action & REDO_MERGE)
     if redo_merge:
+        sampler = None
+        if opt.pop_correction:
+            from kmdiff_tpu_torch.pipeline.popstrat import GenoSampler
+
+            sampler = GenoSampler(pop_dir, opt.kmer_pca, opt.seed,
+                                  opt.nb_controls + opt.nb_cases)
         accumulators = _make_accumulators(
             opt, config.nb_partitions, config.kmer_size, part_dir, read=False
         )
-        opt.total_kmers = do_diff(opt, config, accumulators, device)
+        opt.total_kmers = do_diff(opt, config, accumulators, device, sampler)
+        if sampler is not None:
+            sampler.close()
     else:
         opt.total_kmers = prev_opt.total_kmers
         accumulators = _make_accumulators(
@@ -186,8 +218,26 @@ def main_diff(opt: DiffOptions, device: torch.device) -> dict:
         )
     dump_options(opt, manifest)
 
+    redo_pop = opt.pop_correction and (
+        not prev_pop or bool(action & REDO_POP) or redo_merge)
+    if redo_pop:
+        from kmdiff_tpu_torch.pipeline.popstrat import do_pop
+
+        accumulators = do_pop(opt, config, accumulators, pop_dir, part_dir,
+                              device, timings)
+    elif opt.pop_correction:
+        # intact popstrat spills: aggregate the CORRECTED hits (the
+        # reference keeps the uncorrected ones here, diff.hpp:355-364,
+        # and drops the correction; the JAX package fixes that too)
+        for acc in accumulators:
+            acc.destroy()
+        accumulators = _make_accumulators(
+            opt, config.nb_partitions, config.kmer_size, part_dir, read=True,
+            spill="popstrat_uncorrected",
+        )
+
     counts = (0, 0)
-    if not prev_out or action > 0 or redo_merge:
+    if not prev_out or action > 0 or redo_merge or redo_pop:
         counts = do_correction(opt, config, accumulators, opt.total_kmers)
     for acc in accumulators:
         acc.destroy()

@@ -9,6 +9,11 @@ histograms at once (the model's totals come from them), count files by
 background threads that overlap the merge, or not at all with
 --no-count-files. Outputs are byte-identical to count + diff.
 
+With --pop-correction the merge keeps the survivors' count rows and
+samples the geno rows (pipeline.fused's full merge), the resident streams
+are let go, and popstrat corrects the hits (pipeline.popstrat) before the
+output.
+
 Resumes (an existing options.json, or a run directory with every count
 file) take the standard count + diff flow, and so does a cohort the fused
 path cannot serve (FusedFallback) or a device allocation that fails during
@@ -62,8 +67,8 @@ def main_run(copt: CountOptions, dopt: DiffOptions, device: torch.device,
              timings: dict | None = None) -> dict:
     """The `run` command. recurrence_min is accepted and not applied, as in
     the count stage. timings, when given, receives the wall seconds of the
-    fused path's phases ("count", "merge", "total"); the result dict is
-    main_diff's."""
+    fused path's phases ("count", "merge", "total", and with popstrat
+    "pca", "null_fit", "alt_fits"); the result dict is main_diff's."""
     from kmdiff_tpu_torch.cmd.diff import _reject_unported
     from kmdiff_tpu_torch.ops.codec import MAX_K
 
@@ -148,7 +153,11 @@ def _main_run_fused(copt: CountOptions, dopt: DiffOptions,
     )
     from kmdiff_tpu.utils.exceptions import InputError
     from kmdiff_tpu.utils.rss import get_peak_rss_mb
-    from kmdiff_tpu_torch.cmd.diff import _make_accumulators, do_correction
+    from kmdiff_tpu_torch.cmd.diff import (
+        _make_accumulators,
+        do_correction,
+        save_sk_dir,
+    )
     from kmdiff_tpu_torch.io.fasta import flat_codes
     from kmdiff_tpu_torch.pipeline import fused
     from kmdiff_tpu_torch.pipeline.merge import PartitionProcessor
@@ -226,18 +235,32 @@ def _main_run_fused(copt: CountOptions, dopt: DiffOptions,
         )
         model = PoissonLikelihood(dopt.nb_controls, dopt.nb_cases,
                                   total_controls, total_cases, dopt.log_size)
+        sampler = None
+        pop_dir = os.path.join(dopt.output_directory, "popstrat")
+        if dopt.pop_correction:
+            from kmdiff_tpu_torch.pipeline.popstrat import GenoSampler
+
+            os.makedirs(pop_dir, exist_ok=True)
+            sampler = GenoSampler(pop_dir, dopt.kmer_pca, dopt.seed,
+                                  dopt.nb_controls + dopt.nb_cases)
         processor = PartitionProcessor(
             model, dopt.nb_controls, dopt.nb_cases,
             threshold=dopt.threshold / dopt.cutoff, device=device,
+            keep_counts=dopt.pop_correction, sampler=sampler,
+            save_matrix_path=save_sk_dir(dopt),
         )
         accumulators = _make_accumulators(dopt, nb_partitions, k, part_dir,
                                           read=False)
         merge_timer = Timer()
         logger.info("Process resident streams")
         total_kmers, nb_sign, sign_controls, sign_cases = fused.fused_merge(
-            processor, accumulators, streams, nb_partitions
+            processor, accumulators, streams, nb_partitions, k
         )
-        streams.clear()  # the queued spills hold what they still need
+        # the queued spills hold what they still need; the rest of the
+        # resident streams' memory goes before the popstrat kernels run
+        streams.clear()
+        if sampler is not None:
+            sampler.close()
         dopt.total_kmers = total_kmers
         if timings is not None:
             timings["merge"] = merge_timer.elapsed()
@@ -246,6 +269,11 @@ def _main_run_fused(copt: CountOptions, dopt: DiffOptions,
         logger.info("Before correction: %d (control), %d (case).",
                     sign_controls, sign_cases)
         dump_options(dopt, os.path.join(dopt.output_directory, "options.json"))
+        if dopt.pop_correction:
+            from kmdiff_tpu_torch.pipeline.popstrat import do_pop
+
+            accumulators = do_pop(dopt, config, accumulators, pop_dir,
+                                  part_dir, device, timings)
         counts = do_correction(dopt, config, accumulators, total_kmers)
         for acc in accumulators:
             acc.destroy()

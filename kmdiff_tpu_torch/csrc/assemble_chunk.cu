@@ -1,13 +1,16 @@
 // K-ASM: assemble one merge chunk from slices of the resident sample streams.
 //
 // Replaces kmdiff_tpu/pipeline/fused.py::_assemble_chunk_impl in its packed
-// modes (p16, p32): every stream s contributes rows [start_s, start_s + len_s)
+// modes (p16, p32) and its "full" mode (fused.py:414-420, p32 counts plus
+// each row's sample id, for popstrat's count and geno rows and --save-sk):
+// every stream s contributes rows [start_s, start_s + len_s)
 // of its sorted int64 keys and u32 counts; the chunk is their concatenation
 // in stream order, each count packed with its stream's control flag, the
 // packing of run_bounds.cu::run_group_sums_kernel (and of
 // kmdiff_tpu_torch/ops/merge_dev.py::build_triples_packed):
 //   count_bytes == 2: u16, count in bits 0..14, control flag in bit 15
 //   count_bytes == 4: i32, count in bits 0..30, control flag in the sign bit
+// With out_sample, each row's stream index s is written beside it as u16.
 //
 // The TPU form is gone: no fixed [S, M] slice per stream (dynamic_slice with a
 // sentinel-padded blob so it never clamps), no sentinel fill of the unused
@@ -21,7 +24,8 @@
 // exit.
 //
 // Bound on the H100: device memory. A row reads 8 + 4 bytes and writes 8 + 2
-// (or 4), all contiguous within a stream. No shared memory, no atomics.
+// (or 4, and 2 more with sample ids), all contiguous within a stream. No
+// shared memory, no atomics.
 #include "kmd_common.cuh"
 
 namespace {
@@ -43,7 +47,8 @@ static_assert(sizeof(Slice) == 48, "one table row is six int64");
 template <typename Packed>
 __global__ void assemble_kernel(const Slice* __restrict__ table,
                                 int64_t* __restrict__ out_keys,
-                                Packed* __restrict__ out_counts) {
+                                Packed* __restrict__ out_counts,
+                                uint16_t* __restrict__ out_sample) {
   const Slice t = table[blockIdx.y];
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
@@ -61,6 +66,7 @@ __global__ void assemble_kernel(const Slice* __restrict__ table,
       if (t.is_control) v |= 0x80000000u;
       out_counts[dst] = static_cast<Packed>(v);
     }
+    if (out_sample != nullptr) out_sample[dst] = static_cast<uint16_t>(blockIdx.y);
   }
 }
 
@@ -68,7 +74,8 @@ __global__ void assemble_kernel(const Slice* __restrict__ table,
 
 KMD_API int kmd_assemble_chunk(const int64_t* table, int S, long long max_len,
                                int count_bytes, int64_t* out_keys,
-                               void* out_counts, cudaStream_t stream) {
+                               void* out_counts, uint16_t* out_sample,
+                               cudaStream_t stream) {
   if (count_bytes != 2 && count_bytes != 4) return static_cast<int>(cudaErrorInvalidValue);
   if (S <= 0 || S > 65535 || max_len <= 0) return static_cast<int>(cudaErrorInvalidValue);
   long long bx = (max_len + kThreads - 1) / kThreads;
@@ -77,10 +84,10 @@ KMD_API int kmd_assemble_chunk(const int64_t* table, int S, long long max_len,
   const Slice* slices = reinterpret_cast<const Slice*>(table);
   if (count_bytes == 2) {
     assemble_kernel<uint16_t><<<grid, kThreads, 0, stream>>>(
-        slices, out_keys, static_cast<uint16_t*>(out_counts));
+        slices, out_keys, static_cast<uint16_t*>(out_counts), out_sample);
   } else {
     assemble_kernel<uint32_t><<<grid, kThreads, 0, stream>>>(
-        slices, out_keys, static_cast<uint32_t*>(out_counts));
+        slices, out_keys, static_cast<uint32_t*>(out_counts), out_sample);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,6 +10,10 @@ The kernels live in ``csrc/*.cu`` beside this file:
                            stream slices
   weighted_runs    K-WRUN  per-run u32 weight sums    (ops.codec)
   abundance_hist   K-HIST  abundance histogram        (ops.codec)
+  run_rows         K-ROWS  per-sample rows of runs    (ops.merge_dev)
+  geno_sample      K-GENO  hashed k-mer sample        (ops.merge_dev)
+  int_gram         K-GRAM  exact 0/1 Gram             (ops.pca)
+  irls             K-IRLS  batched logistic IRLS      (ops.glm)
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into an object, all of
 them at once in parallel, and the objects are linked into one shared
@@ -44,7 +48,8 @@ _CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kmdiff_tpu_torch")
 
 KERNELS = ("lrt_filter", "canonical_kmers", "run_bounds", "compact",
-           "assemble_chunk", "weighted_runs", "abundance_hist")
+           "assemble_chunk", "weighted_runs", "abundance_hist", "run_rows",
+           "geno_sample", "int_gram", "irls")
 
 #: -fmad=false and no --use_fast_math: the LR margin assumes IEEE logf,
 #: division and unfused multiply-adds (kmdiff_tpu/ops/lrt.py:41-46)
@@ -56,6 +61,7 @@ NVCC_FLAGS = (
 _vp = ctypes.c_void_p
 _ll = ctypes.c_longlong
 _i = ctypes.c_int
+_u = ctypes.c_uint
 _f = ctypes.c_float
 
 #: C signatures: name -> (restype, argtypes)
@@ -67,9 +73,16 @@ _SIGNATURES = {
     "kmd_run_group_sums": (_i, [_vp, _ll, _vp, _vp, _vp, _i, _vp, _vp]),
     "kmd_compact_tile_rows": (_ll, []),
     "kmd_compact": (_i, [_vp, _ll, _vp, _vp, _vp, _vp, _vp, _vp]),
-    "kmd_assemble_chunk": (_i, [_vp, _i, _ll, _i, _vp, _vp, _vp]),
+    "kmd_assemble_chunk": (_i, [_vp, _i, _ll, _i, _vp, _vp, _vp, _vp]),
     "kmd_weighted_run_sums": (_i, [_vp, _ll, _vp, _vp, _vp, _vp, _vp]),
     "kmd_abundance_hist": (_i, [_vp, _ll, _vp, _vp]),
+    "kmd_run_rows": (_i, [_vp, _ll, _vp, _vp, _ll, _vp, _vp, _vp, _i, _i, _vp, _vp]),
+    "kmd_geno_sample": (_i, [_vp, _ll, _u, _u, _vp, _vp]),
+    "kmd_int_gram": (_i, [_vp, _ll, _i, _vp, _vp, _vp]),
+    "kmd_irls_max_features": (_i, []),
+    "kmd_irls_smem_bytes": (_ll, [_i, _i]),
+    "kmd_irls": (_i, [_vp, _ll, _vp, _vp, _ll, _i, _i, _i, _f, _f, _vp, _vp, _vp,
+                      _vp, _vp, _vp]),
     "kmd_error_string": (ctypes.c_char_p, [_i]),
 }
 

@@ -1,5 +1,5 @@
-"""Partition merge + LRT on the device (port of kmdiff_tpu/ops/merge_dev.py,
-the packed narrow branch of merge_lrt_local).
+"""Partition merge + LRT on the device (port of kmdiff_tpu/ops/merge_dev.py:
+merge_lrt_local's narrow branches, packed and full).
 
 The S sorted per-sample streams of one partition (or the two group streams
 after the host pre-sum) ship once as int64 keys plus one packed count per
@@ -14,6 +14,14 @@ count fits 15 bits) or in the sign bit (int32). On the device:
                                  f32 LR + margin keep on the [U, 2] sums
   K-CMP compact                  survivors' keys and sums
 
+The full branch (popstrat, --save-sk) ships each row's sample id too, with
+int32 packed counts, and adds per-sample rows of the selected runs:
+
+  K-ROWS run_rows                survivors' [H, S] count rows
+  K-GENO geno_sample, K-CMP      the run starts whose k-mer hash falls below
+                                 the kmer_pca threshold
+  K-ROWS run_rows (presence)     their [G, S] 0/1 geno rows
+
 Only survivor-sized tensors come back to the host.
 """
 
@@ -22,13 +30,30 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from kmdiff_tpu_torch import kernels
 from kmdiff_tpu_torch.ops.codec import (
+    _run_ends,
     compact,
     run_flags,
     run_group_sums,
     words_to_keys,
 )
 from kmdiff_tpu_torch.ops.lrt_kernel import lrt_filter
+
+_U32 = 0xFFFFFFFF
+_SAMPLE_SEED = 0x51ED2700
+
+
+def _merge_runs(keys, count, ratio_c, ratio_k, lr_min):
+    """The merge and test both branches share: sort, run starts, group
+    sums, K-LRT, survivors."""
+    keys_s, perm = torch.sort(keys)
+    flags, n_valid = run_flags(keys_s)
+    starts, run_keys = compact(flags, keys_s)
+    sums = run_group_sums(starts, n_valid, perm, count)
+    keep, _lr, _s_c, _s_k = lrt_filter(sums, 1, ratio_c, ratio_k, lr_min)
+    hit, hit_keys = compact(keep, run_keys)
+    return perm, n_valid, starts, run_keys, sums, hit, hit_keys
 
 
 def merge_lrt(keys: torch.Tensor, count: torch.Tensor, ratio_c, ratio_k,
@@ -39,13 +64,129 @@ def merge_lrt(keys: torch.Tensor, count: torch.Tensor, ratio_c, ratio_k,
     build_triples_packed packs it. Returns (n_distinct, hit_keys [H]
     int64 ascending, hit_sums [H, 2] int32) with the survivors on the
     keys' device."""
-    keys_s, perm = torch.sort(keys)
-    flags, n_valid = run_flags(keys_s)
-    starts, run_keys = compact(flags, keys_s)
-    sums = run_group_sums(starts, n_valid, perm, count)
-    keep, _lr, _s_c, _s_k = lrt_filter(sums, 1, ratio_c, ratio_k, lr_min)
-    hit, hit_keys = compact(keep, run_keys)
+    _p, _nv, starts, _rk, sums, hit, hit_keys = _merge_runs(
+        keys, count, ratio_c, ratio_k, lr_min)
     return starts.numel(), hit_keys, sums[hit]
+
+
+def merge_lrt_full(keys: torch.Tensor, count: torch.Tensor,
+                   sample: torch.Tensor, nb_samples: int, ratio_c, ratio_k,
+                   lr_min, want_rows: bool, want_geno: bool, pca_thr=0,
+                   pca_seed: int = 0):
+    """One chunk's merged test with per-sample rows (merge_lrt_kernel with
+    want_rows / want_geno, packed_ctrl=False).
+
+    keys [N] int64, count [N] int32 in the p32 packing and sample [N] int16
+    (u16 stream ids below nb_samples), as build_triples builds them.
+    Returns (n_distinct, hit_keys [H] int64 ascending, hit_sums [H, 2]
+    int32, hit_rows [H, S] int32 holding u32 or None, geno_rows [G, S]
+    uint8 or None): the survivors' count rows (want_rows) and the 0/1 rows
+    of the run starts sampled at pca_thr (pca_threshold_u32) under
+    pca_seed (want_geno), both in ascending key order."""
+    perm, n_valid, starts, run_keys, sums, hit, hit_keys = _merge_runs(
+        keys, count, ratio_c, ratio_k, lr_min)
+    rows = geno = None
+    if want_rows:
+        rows = run_rows(starts, n_valid, hit, perm, count, sample, nb_samples)
+    if want_geno:
+        sel, _ = compact(geno_sample(run_keys, pca_thr, pca_seed))
+        geno = run_rows(starts, n_valid, sel, perm, count, sample, nb_samples,
+                        presence=True)
+    return starts.numel(), hit_keys, sums[hit], rows, geno
+
+
+def pca_threshold_u32(rate: float) -> np.uint32:
+    """The sampling threshold of kmer_pca = rate, as u32."""
+    return np.uint32(min(rate, 1.0) * 4294967295.0)
+
+
+# -- K-GENO --------------------------------------------------------------------
+
+def _mul_u32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h * c) mod 2^32 for h < 2^32 in int64, in 16-bit halves of c so
+    that no product reaches 2^63."""
+    return (h * (c & 0xFFFF) + (((h * (c >> 16)) & 0xFFFF) << 16)) & _U32
+
+
+def _avalanche(h: torch.Tensor) -> torch.Tensor:
+    h = h ^ (h >> 16)
+    h = _mul_u32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul_u32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def geno_sample_plain(keys: torch.Tensor, thr, seed: int) -> torch.Tensor:
+    hi = ((keys >> 32) & _U32) ^ 0x80000000  # the word's top half (key ^ 1<<63)
+    lo = keys & _U32
+    h = torch.full_like(keys, (_SAMPLE_SEED ^ int(seed)) & _U32)
+    h = _avalanche(hi ^ h)
+    h = _avalanche(lo ^ h)
+    return h < int(thr)
+
+
+def geno_sample(keys: torch.Tensor, thr, seed: int) -> torch.Tensor:
+    """K-GENO: keys [U] int64 -> [U] bool, set where the k-mer's avalanche
+    hash under seed falls below thr (u32). The mask of the JAX package's
+    host sample_mask and of its device merge, for every layout."""
+    if keys.device.type == "cpu":
+        return geno_sample_plain(keys, thr, seed)
+    kernels.require_cuda_tensor("geno_sample keys", keys, torch.int64)
+    U = keys.numel()
+    mask = torch.empty(U, dtype=torch.bool, device=keys.device)
+    if U:
+        with torch.cuda.device(keys.device):
+            kernels.launch("geno_sample", "kmd_geno_sample", keys.data_ptr(), U,
+                           int(thr), int(seed) & _U32, mask.data_ptr())
+    return mask
+
+
+# -- K-ROWS --------------------------------------------------------------------
+
+def run_rows_plain(starts, n_valid, sel, perm, count, sample, nb_samples: int,
+                   presence: bool = False):
+    ends = _run_ends(starts, n_valid)
+    b, lens = starts[sel], ends[sel] - starts[sel]
+    H = sel.numel()
+    slot = torch.repeat_interleave(torch.arange(H, device=sel.device), lens)
+    first = torch.cumsum(lens, 0) - lens
+    r = torch.arange(slot.numel(), device=sel.device) - first[slot] + b[slot]
+    p = perm[r]
+    v = count[p].to(torch.int64) & 0x7FFFFFFF
+    s = sample[p].to(torch.int64) & 0xFFFF
+    ok = s < nb_samples
+    rows = torch.zeros((H, nb_samples), dtype=torch.int32, device=sel.device)
+    rows[slot[ok], s[ok]] = v[ok].to(torch.int32)
+    return (rows > 0).to(torch.uint8) if presence else rows
+
+
+def run_rows(starts: torch.Tensor, n_valid: torch.Tensor, sel: torch.Tensor,
+             perm: torch.Tensor, count: torch.Tensor, sample: torch.Tensor,
+             nb_samples: int, presence: bool = False) -> torch.Tensor:
+    """K-ROWS: per selected run sel[h] (an index into starts), the
+    per-sample row of its counts -> [H, S] int32 (count & 0x7FFFFFFF of
+    the p32 packing), or with presence [H, S] uint8 (count > 0). Row r of
+    the sorted order is count[perm[r]] of sample sample[perm[r]]; a run
+    ends at the next start or at n_valid. Sample ids >= S are ignored."""
+    if starts.device.type == "cpu":
+        return run_rows_plain(starts, n_valid, sel, perm, count, sample,
+                              nb_samples, presence)
+    for name, t, dt in (("starts", starts, torch.int64),
+                        ("n_valid", n_valid, torch.int64),
+                        ("sel", sel, torch.int64), ("perm", perm, torch.int64),
+                        ("count", count, torch.int32),
+                        ("sample", sample, torch.int16)):
+        kernels.require_cuda_tensor(f"run_rows {name}", t, dt)
+    H = sel.numel()
+    rows = torch.empty((H, nb_samples),
+                       dtype=torch.uint8 if presence else torch.int32,
+                       device=starts.device)
+    with torch.cuda.device(starts.device):
+        kernels.launch("run_rows", "kmd_run_rows", starts.data_ptr(),
+                       starts.numel(), n_valid.data_ptr(), sel.data_ptr(), H,
+                       perm.data_ptr(), count.data_ptr(), sample.data_ptr(),
+                       nb_samples, int(presence), rows.data_ptr())
+    return rows
 
 
 def pack16_ok(counts_list: list[np.ndarray]) -> bool:
@@ -81,6 +222,20 @@ def build_triples_packed(kmers_list: list[np.ndarray],
                                     if s < nb_controls else ci)
         pos += n
     return keys, count, N
+
+
+def build_triples(kmers_list: list[np.ndarray], counts_list: list[np.ndarray],
+                  nb_controls: int):
+    """Host: per-stream sorted (kmers [n, 1] u64, counts [n] u32) -> (keys
+    [N] int64, counts [N] int32 in the p32 packing, sample ids [N] int16
+    holding u16, N), the full branch's operands (merge_lrt_full)."""
+    S = len(kmers_list)
+    if S > 0xFFFF:
+        raise ValueError(f"build_triples: {S} samples, at most 65535")
+    keys, count, N = build_triples_packed(kmers_list, counts_list, nb_controls)
+    sample = np.repeat(np.arange(S, dtype=np.uint16),
+                       [len(k) for k in kmers_list]).view(np.int16)
+    return keys, count, sample, N
 
 
 def quantile_key_split(kmers_list, n_ranges: int, budget_fn, *,

@@ -8,6 +8,9 @@ partition thread pool).
   counts, and merged and filtered there (ops.merge_dev.merge_lrt).
   Partitions above MAX_DEVICE_ROWS stream through in key-range chunks;
   each chunk is complete because every stream is sorted.
+* Popstrat and --save-sk need each survivor's per-sample counts, and
+  popstrat the sampled geno rows: the S streams then ship unsummed, with
+  each row's sample id, and merge through ops.merge_dev.merge_lrt_full.
 * Prebuilt count matrices: [B, S] row blocks go through K-LRT
   (ops.lrt.run_filter) in BLOCK_ROWS tiles.
 * Chunks already on the device (the fused run's key-range chunks,
@@ -17,8 +20,8 @@ partition thread pool).
 Either way the small survivor set is rescored in exact f64 on the host
 (kmdiff_tpu.core.model), which reproduces kmdiff's p-values.
 
-Not ported yet (NotImplementedError): custom models, --save-sk, popstrat's
-count rows and geno sampling, and cohorts whose k-mer mass reaches 2^31.
+Not ported yet (NotImplementedError): custom models and cohorts whose k-mer
+mass reaches 2^31.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 from kmdiff_tpu.core.model import IModel, PoissonLikelihood, Significance
 from kmdiff_tpu.io.accumulator import IAccumulator, KmerSignBlock
 from kmdiff_tpu.io.kmtricks import read_kmer_file
+from kmdiff_tpu.pipeline.popstrat import sample_mask
 from kmdiff_tpu.utils.logging import logger
 from kmdiff_tpu_torch.ops.codec import keys_to_words
 from kmdiff_tpu_torch.ops.lrt import LrtParams, run_filter
@@ -75,7 +79,12 @@ class PartitionProcessor:
     rescore -> accumulate (reference observer: merge.hpp:68-103)."""
 
     def __init__(self, model: IModel, nb_controls: int, nb_cases: int,
-                 threshold: float, device: torch.device):
+                 threshold: float, device: torch.device,
+                 keep_counts: bool = False, sampler=None,
+                 save_matrix_path: str | None = None):
+        """keep_counts: survivors carry their count rows (popstrat);
+        sampler: a popstrat GenoSampler that receives each partition's
+        sampled geno rows; save_matrix_path: --save-sk's directory."""
         if not isinstance(model, PoissonLikelihood):
             raise NotImplementedError(
                 "custom models are not ported to kmdiff_tpu_torch yet "
@@ -86,6 +95,10 @@ class PartitionProcessor:
         self.nb_cases = nb_cases
         self.threshold = threshold
         self.device = device
+        self.keep_counts = keep_counts
+        self.sampler = sampler
+        self.save_matrix_path = save_matrix_path
+        self.want_rows = keep_counts or save_matrix_path is not None
         self.phases = _Phases()
         self.params = LrtParams(nb_controls, nb_cases, model.sum_controls,
                                 model.sum_cases, threshold)
@@ -118,17 +131,52 @@ class PartitionProcessor:
             np.asarray(sg[final], dtype=np.int8),
             np.asarray(mc[final], dtype=np.float64),
             np.asarray(mk[final], dtype=np.float64),
-            None,
+            counts[idx].astype(np.float64) if self.keep_counts else None,
         )
         n_ctrl = int(np.sum(block.signs == int(Significance.CONTROL)))
         return block, idx, n_ctrl, len(block) - n_ctrl
+
+    def write_matrix_sink(self, partition, sink, kmer_size, S):
+        """--save-sk: one partition's survivors' count matrix from its
+        (kmers, count rows) parts (the reference writes only k-mers that
+        pass the merge, merge.hpp:83-87)."""
+        from kmdiff_tpu.core.kmer import n_words
+        from kmdiff_tpu.io.kmtricks import write_matrix_file
+
+        if sink:
+            km = np.concatenate([m[0] for m in sink])
+            ct = np.concatenate([m[1] for m in sink])
+        else:
+            km = np.zeros((0, n_words(kmer_size)), np.uint64)
+            ct = np.zeros((0, S), np.uint32)
+        write_matrix_file(
+            f"{self.save_matrix_path}/matrix_{partition}.count.lz4",
+            km, ct.astype(np.uint32), kmer_size, partition,
+        )
+
+    def new_sinks(self) -> tuple[list | None, list | None]:
+        """One partition's empty (geno rows, --save-sk rows) sinks, None
+        for what is not wanted; merge_device_chunk fills them."""
+        return ([] if self.sampler is not None else None,
+                [] if self.save_matrix_path is not None else None)
+
+    def flush_sinks(self, partition, geno_sink, matrix_sink, kmer_size, S):
+        """Hand one partition's collected rows on, once: the geno rows to
+        the sampler (which keeps one set of rows a partition), the
+        --save-sk rows to the partition's matrix."""
+        if geno_sink is not None:
+            self.sampler.add_sampled(partition, (
+                np.concatenate(geno_sink) if geno_sink
+                else np.zeros((0, S), np.uint8)))
+        if matrix_sink is not None:
+            self.write_matrix_sink(partition, matrix_sink, kmer_size, S)
 
     # -- partition entry points ----------------------------------------------
 
     def process_files(self, partition: int, paths: list[str],
                       acc: IAccumulator) -> PartitionResult:
         t0 = time.perf_counter()
-        kmers_list, counts_list = [], []
+        kmers_list, counts_list, ksize = [], [], 0
         for path in paths:
             info, kmers, counts = read_kmer_file(path)
             if info.kmer_size > 32:
@@ -136,38 +184,50 @@ class PartitionProcessor:
                     f"k={info.kmer_size}: the port merges k <= 32; k > 32 "
                     "is ROADMAP.md port queue item 2"
                 )
+            ksize = info.kmer_size
             kmers_list.append(kmers)
             counts_list.append(counts)
         self.phases.add("decode", time.perf_counter() - t0)
         res = self._process_device_merge(partition, kmers_list, counts_list,
-                                         acc)
+                                         acc, ksize)
         self._log_phases(partition)
         return res
 
     def process_matrix(self, partition: int, path: str,
                        acc: IAccumulator) -> PartitionResult:
         """Stream a prebuilt count matrix in bounded row blocks (rows are
-        already merged, one distinct k-mer each)."""
+        already merged, one distinct k-mer each); sampled geno rows and
+        --save-sk survivors collect across blocks."""
         from kmdiff_tpu.io.kmtricks import open_matrix_stream
 
-        _info, blocks = open_matrix_stream(path)
+        info, blocks = open_matrix_stream(path)
         total = nsign = n_ctrl = n_case = 0
+        geno_sink, sink = self.new_sinks()
         for kmers, counts in blocks:
-            block, _idx, nc, nk = self._score_block(kmers, counts)
+            if geno_sink is not None:
+                mask = sample_mask(kmers, self.sampler.rate, self.sampler.seed)
+                geno_sink.append((counts[mask] > 0).astype(np.uint8))
+            block, idx, nc, nk = self._score_block(kmers, counts)
+            if sink is not None:
+                sink.append((kmers[idx], counts[idx]))
             acc.push_block(block)
             total += len(counts)
             nsign += len(block)
             n_ctrl += nc
             n_case += nk
+        self.flush_sinks(partition, geno_sink, sink if info.kmer_size else None,
+                         info.kmer_size, info.count_slots)
         acc.finish()
         return PartitionResult(partition, total, nsign, n_ctrl, n_case)
 
     def _process_device_merge(self, partition, kmers_list, counts_list,
-                              acc) -> PartitionResult:
-        """Pre-sum the groups on the host, then merge on the device, in
-        key-range chunks above MAX_DEVICE_ROWS."""
+                              acc, ksize: int = 0) -> PartitionResult:
+        """Pre-sum the groups on the host (unless rows or geno are wanted),
+        then merge on the device, in key-range chunks above
+        MAX_DEVICE_ROWS."""
         nbc = self.nb_controls
-        if 1 <= nbc < len(kmers_list) and len(kmers_list) > 2:
+        full = self.want_rows or self.sampler is not None
+        if not full and 1 <= nbc < len(kmers_list) and len(kmers_list) > 2:
             # the test reads only per-GROUP sums (model.hpp:145-146), so the
             # controls and the cases each merge into one stream first
             # (exact integer sums): the device then sorts ~2 rows per
@@ -182,33 +242,18 @@ class PartitionProcessor:
             nbc = 1
             self.phases.add("groupsum", time.perf_counter() - t0)
         if sum(len(k) for k in kmers_list) > MAX_DEVICE_ROWS:
-            return self._process_device_merge_chunked(
-                partition, kmers_list, counts_list, acc, nbc
-            )
-        return self._device_merge_chunk(partition, kmers_list, counts_list,
-                                        acc, nbc, finish=True)
-
-    def _process_device_merge_chunked(self, partition, kmers_list,
-                                      counts_list, acc, nbc) -> PartitionResult:
-        """Split the partition at common k-mer boundaries into chunks of
-        about 7/8 of MAX_DEVICE_ROWS and merge them in key order. Quantile
-        splitters are approximate, so the chunk count doubles on overshoot
-        (bounded retries; an over-budget chunk is still merged whole)."""
-        from kmdiff_tpu_torch.ops.merge_dev import quantile_key_split
-
-        N_real = sum(len(k) for k in kmers_list)
-        n_chunks = max(2, -(-N_real // max(1, (MAX_DEVICE_ROWS * 7) // 8)))
-        bounds, chunk_slices, _R = quantile_key_split(
-            kmers_list, n_chunks, lambda _r: MAX_DEVICE_ROWS,
-            grow=True, attempts=4, best_effort=True,
-        )
-        results = []
-        for per_sample in chunk_slices:
-            sub_k = [km[a:b] for (a, b), km in zip(per_sample, kmers_list)]
-            sub_c = [ct[a:b] for (a, b), ct in zip(per_sample, counts_list)]
-            results.append(self._device_merge_chunk(
-                partition, sub_k, sub_c, acc, nbc, finish=False
-            ))
+            chunks = self._key_range_chunks(kmers_list, counts_list)
+        else:
+            chunks = [(kmers_list, counts_list)]
+        # the chunks' geno and --save-sk rows go on once for the partition
+        geno_sink, matrix_sink = self.new_sinks()
+        results = [
+            self._device_merge_chunk(partition, sub_k, sub_c, acc, nbc,
+                                     geno_sink, matrix_sink)
+            for sub_k, sub_c in chunks
+        ]
+        self.flush_sinks(partition, geno_sink, matrix_sink, ksize,
+                         len(kmers_list))
         acc.finish()
         return PartitionResult(
             partition,
@@ -218,52 +263,112 @@ class PartitionProcessor:
             sum(r.sign_cases for r in results),
         )
 
+    @staticmethod
+    def _key_range_chunks(kmers_list, counts_list):
+        """Split a partition at common k-mer boundaries into chunks of
+        about 7/8 of MAX_DEVICE_ROWS, in key order. Quantile splitters are
+        approximate, so the chunk count doubles on overshoot (bounded
+        retries; an over-budget chunk is still merged whole)."""
+        from kmdiff_tpu_torch.ops.merge_dev import quantile_key_split
+
+        N_real = sum(len(k) for k in kmers_list)
+        n_chunks = max(2, -(-N_real // max(1, (MAX_DEVICE_ROWS * 7) // 8)))
+        _bounds, chunk_slices, _R = quantile_key_split(
+            kmers_list, n_chunks, lambda _r: MAX_DEVICE_ROWS,
+            grow=True, attempts=4, best_effort=True,
+        )
+        return [([km[a:b] for (a, b), km in zip(per_sample, kmers_list)],
+                 [ct[a:b] for (a, b), ct in zip(per_sample, counts_list)])
+                for per_sample in chunk_slices]
+
     def _device_merge_chunk(self, partition, kmers_list, counts_list, acc,
-                            nbc, finish=True) -> PartitionResult:
-        """Pack one chunk's host streams into keys and packed counts, ship
-        them and merge them on the device."""
-        from kmdiff_tpu_torch.ops.merge_dev import build_triples_packed, pack16_ok
+                            nbc, geno_sink, matrix_sink) -> PartitionResult:
+        """Pack one chunk's host streams into keys and packed counts (and
+        sample ids, for rows or geno), ship them and merge them on the
+        device."""
+        from kmdiff_tpu_torch.ops.merge_dev import (
+            build_triples,
+            build_triples_packed,
+            pack16_ok,
+        )
 
         t0 = time.perf_counter()
-        keys, count, _N = build_triples_packed(
-            kmers_list, counts_list, nbc, pack16=pack16_ok(counts_list)
-        )
+        sample = None
+        if self.want_rows or self.sampler is not None:
+            keys, count, sample, _N = build_triples(kmers_list, counts_list, nbc)
+            sample = torch.from_numpy(sample).to(self.device)
+        else:
+            keys, count, _N = build_triples_packed(
+                kmers_list, counts_list, nbc, pack16=pack16_ok(counts_list)
+            )
         self.phases.add("build", time.perf_counter() - t0)
         return self.merge_device_chunk(
             partition, torch.from_numpy(keys).to(self.device),
-            torch.from_numpy(count).to(self.device), acc, finish=finish,
+            torch.from_numpy(count).to(self.device), acc, sample=sample,
+            geno_sink=geno_sink, matrix_sink=matrix_sink,
         )
 
     def merge_device_chunk(self, partition, keys: torch.Tensor,
                            count: torch.Tensor, acc,
-                           finish=True) -> PartitionResult:
+                           sample: torch.Tensor | None = None,
+                           geno_sink: list | None = None,
+                           matrix_sink: list | None = None) -> PartitionResult:
         """One chunk already on the device: keys [N] int64 and packed
         counts [N] (merge_dev.build_triples_packed's packing) -> merge and
         filter there (merge_dev.merge_lrt), rescore the survivors in f64 on
-        the host, push them to acc. The count+diff merge and the fused
-        run's merge both end here."""
-        from kmdiff_tpu_torch.ops.merge_dev import merge_lrt
+        the host, push them to acc; the caller finishes acc. The count+diff
+        merge and the fused run's merge both end here.
+
+        With sample ids [N] int16 (and p32 counts: merge_dev.build_triples)
+        the chunk merges through merge_dev.merge_lrt_full: survivors carry
+        their count rows when keep_counts, their --save-sk rows go to
+        matrix_sink and the sampled geno rows to geno_sink (new_sinks; the
+        caller hands them on with flush_sinks)."""
+        from kmdiff_tpu_torch.ops.merge_dev import (
+            merge_lrt,
+            merge_lrt_full,
+            pca_threshold_u32,
+        )
 
         t0 = time.perf_counter()
-        n_distinct, hit_keys, hit_sums = merge_lrt(
-            keys, count, self.params.ratio_c, self.params.ratio_k,
-            self.params.lr_min,
-        )
+        rows = geno = None
+        if sample is None:
+            n_distinct, hit_keys, hit_sums = merge_lrt(
+                keys, count, self.params.ratio_c, self.params.ratio_k,
+                self.params.lr_min,
+            )
+        else:
+            sampler = self.sampler
+            n_distinct, hit_keys, hit_sums, rows, geno = merge_lrt_full(
+                keys, count, sample, self.nb_controls + self.nb_cases,
+                self.params.ratio_c, self.params.ratio_k, self.params.lr_min,
+                want_rows=self.want_rows, want_geno=sampler is not None,
+                pca_thr=pca_threshold_u32(sampler.rate) if sampler else 0,
+                pca_seed=sampler.seed if sampler else 0,
+            )
         hit_kmers, s_c, s_k = self._unpack_blob(hit_keys, hit_sums)
         self.phases.add("device", time.perf_counter() - t0)
         p, sg, mc, mk = self.model.process_sums(s_c, s_k)
         final = p <= self.threshold
+        counts_rows = None
+        if rows is not None:
+            rows_i32 = rows.cpu().numpy()[final]
+            if self.keep_counts:
+                # u32 bit patterns in int32 slots: view back before widening
+                counts_rows = rows_i32.view(np.uint32).astype(np.float64)
+            if matrix_sink is not None:
+                matrix_sink.append((hit_kmers[final], rows_i32))
+        if geno is not None:
+            geno_sink.append(geno.cpu().numpy())
         block = KmerSignBlock(
             hit_kmers[final],
             np.asarray(p[final], dtype=np.float64),
             np.asarray(sg[final], dtype=np.int8),
             np.asarray(mc[final], dtype=np.float64),
             np.asarray(mk[final], dtype=np.float64),
-            None,
+            counts_rows,
         )
         acc.push_block(block)
-        if finish:
-            acc.finish()
         n_ctrl = int(np.sum(block.signs == int(Significance.CONTROL)))
         return PartitionResult(partition, n_distinct, len(block), n_ctrl,
                                len(block) - n_ctrl)

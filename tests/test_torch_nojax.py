@@ -1,8 +1,10 @@
 """The port never imports JAX: in a fresh interpreter that refuses and
 records every `jax` import, kmdiff_tpu_torch simulates, counts, diffs and
-runs (the fused count -> diff) a tiny cohort on the CPU, and no import of
-JAX was even attempted (on a machine where JAX is installed, an attempt
-would load it)."""
+runs (the fused count -> diff) a tiny cohort on the CPU, then diffs and runs
+it again with population-stratification correction and --save-sk (which
+reach the JAX package's popstrat host helpers), and no import of JAX was
+even attempted (on a machine where JAX is installed, an attempt would load
+it)."""
 
 import os
 import pathlib
@@ -50,6 +52,18 @@ _SCRIPT = textwrap.dedent("""
         with open(os.path.join(root, "out", name), "rb") as a, \
                 open(os.path.join(root, "out_f", name), "rb") as b:
             assert a.read() == b.read(), name
+    pop = ["-1", "2", "-2", "2", "-s", "0.5", "--cutoff", "1",
+           "--pop-correction", "--kmer-pca", "0.05", "--threads", "1"]
+    assert main(["diff", "--km-run-dir", os.path.join(root, "run"), *pop,
+                 "--save-sk", "--output-dir", os.path.join(root, "out_p")],
+                device="cpu") == 0
+    assert main(["run", "--file", os.path.join(root, "sim", "fof.txt"),
+                 "-d", os.path.join(root, "run_p"), "-k", "21", *pop,
+                 "-o", os.path.join(root, "out_pf")], device="cpu") == 0
+    for out in ("out_p", "out_pf"):
+        assert os.path.exists(os.path.join(root, out, "popstrat", "pcs.evec"))
+    assert os.listdir(os.path.join(root, "out_p", "positive_kmer_matrix",
+                                   "matrices"))
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib"))
     assert not loaded, loaded

@@ -127,7 +127,7 @@ def test_diff_matrix_run_dir_matches_jax(cohort, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--pop-correction"], ["--model", "x.py"], ["--save-sk"],
+    ["--num-processes", "2"], ["--model", "x.py"], ["--process-id", "0"],
     ["--devices", "2"], ["--profile", "trace"], ["--distributed", "h:1"],
 ])
 def test_unported_diff_flags_raise(cohort, extra, tmp_path):
@@ -138,7 +138,7 @@ def test_unported_diff_flags_raise(cohort, extra, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--pop-correction"], ["--save-sk"], ["--model", "x.py"],
+    ["--profile", "trace"], ["--distributed", "h:1"], ["--model", "x.py"],
     ["--devices", "2"], ["-k", "33"],
 ])
 def test_unported_run_flags_raise(cohort, extra, tmp_path):
