@@ -15,18 +15,41 @@ hot loops as hand-written CUDA kernels for Hopper (``csrc/``, built by
           assembled there (K-ASM) -> diff's merge, test and output; the
           run directory written by background threads
 
-The host code the JAX package keeps free of JAX (file formats, the f64
-model, correctors, writers, the native LZ4 and merge helpers) is imported
-from ``kmdiff_tpu`` as it is; this package never imports JAX.
+The host code (file formats, the f64 model, correctors, writers, popstrat's
+sampler and fits on the host, the native LZ4 and merge library) is the
+port's own copy of the JAX package's, under the same module names
+(``utils``, ``native``, ``io``, ``core``, ``cmd.options``,
+``pipeline.aggregate``, ``pipeline.simulate``, ``pipeline.popstrat``):
+this package imports neither JAX nor ``kmdiff_tpu``.
 """
 
-import os as _os
-
-# Importing kmdiff_tpu points JAX's persistent compile cache at a directory,
-# importing JAX to do so, unless KMDIFF_NO_JAX_CACHE is "1". The port uses
-# only JAX-free modules of that package, so it switches the set-up off
-# before any of them is imported (this also holds for JAX code later run
-# in the same process).
-_os.environ["KMDIFF_NO_JAX_CACHE"] = "1"
-
 __version__ = "0.1.0"
+
+
+def _tune_host_allocator() -> None:
+    """Keep large numpy buffers on the heap instead of per-allocation mmap.
+
+    glibc serves allocations above M_MMAP_THRESHOLD (<= 32 MB dynamic max)
+    straight from mmap and unmaps them on free, so every large temporary
+    repays first-touch page faults. On sandboxed/virtualized hosts faults
+    can run at ~10-20 MB/s (the JAX package measured a 37 MB astype temp at
+    2-5 s per call; with the heap serving it, 10 ms after the one-time
+    high-water fault-in). Raising the threshold makes the host pipeline's
+    big temporaries (decode buffers, triple staging, fetch concatenates)
+    reuse heap pages. Opt out with KMDIFF_NO_MALLOC_TUNE=1."""
+    import os
+
+    if os.environ.get("KMDIFF_NO_MALLOC_TUNE") == "1":
+        return
+    try:
+        import ctypes
+
+        libc = ctypes.CDLL("libc.so.6")
+        M_TRIM_THRESHOLD, M_MMAP_THRESHOLD = -1, -3
+        libc.mallopt(M_MMAP_THRESHOLD, 1 << 30)
+        libc.mallopt(M_TRIM_THRESHOLD, 1 << 30)
+    except Exception:  # glibc-specific tuning, never fatal
+        pass
+
+
+_tune_host_allocator()

@@ -7,9 +7,9 @@ import os
 
 import torch
 
-from kmdiff_tpu.cmd.options import CountOptions
-from kmdiff_tpu.utils.logging import logger
-from kmdiff_tpu.utils.timer import Timer
+from kmdiff_tpu_torch.cmd.options import CountOptions
+from kmdiff_tpu_torch.utils.logging import logger
+from kmdiff_tpu_torch.utils.timer import Timer
 from kmdiff_tpu_torch.pipeline.count import run_count
 
 

@@ -7,7 +7,7 @@ process). Stages:
      with --pop-correction the geno sample and the survivors' count rows
   4. optional population-stratification correction (pipeline.popstrat)
   5. multiple-testing correction + control/case FASTA|KFF
-     (kmdiff_tpu.pipeline.aggregate)
+     (pipeline.aggregate)
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import os
 
 import torch
 
-from kmdiff_tpu.cmd.options import (
+from kmdiff_tpu_torch.cmd.options import (
     REDO_MERGE,
     REDO_POP,
     DiffOptions,
@@ -24,22 +24,22 @@ from kmdiff_tpu.cmd.options import (
     dump_options,
     load_options,
 )
-from kmdiff_tpu.core.corrector import make_corrector
-from kmdiff_tpu.core.model import PoissonLikelihood
-from kmdiff_tpu.io.accumulator import FileAccumulator, partitions_exist
-from kmdiff_tpu.io.kmtricks import (
+from kmdiff_tpu_torch.core.corrector import make_corrector
+from kmdiff_tpu_torch.core.model import PoissonLikelihood
+from kmdiff_tpu_torch.io.accumulator import FileAccumulator, partitions_exist
+from kmdiff_tpu_torch.io.kmtricks import (
     get_matrix_paths,
     get_partition_paths,
     get_total_kmer,
     read_config,
     read_fof,
 )
-from kmdiff_tpu.pipeline.aggregate import Aggregator
-from kmdiff_tpu.utils.exceptions import InputError
-from kmdiff_tpu.utils.logging import logger
-from kmdiff_tpu.utils.progress import get_progress_bar
-from kmdiff_tpu.utils.rss import get_peak_rss_mb
-from kmdiff_tpu.utils.timer import Timer
+from kmdiff_tpu_torch.pipeline.aggregate import Aggregator
+from kmdiff_tpu_torch.utils.exceptions import InputError
+from kmdiff_tpu_torch.utils.logging import logger
+from kmdiff_tpu_torch.utils.progress import get_progress_bar
+from kmdiff_tpu_torch.utils.rss import get_peak_rss_mb
+from kmdiff_tpu_torch.utils.timer import Timer
 from kmdiff_tpu_torch.pipeline.merge import GlobalMerge, PartitionProcessor
 
 
@@ -70,7 +70,7 @@ def _make_accumulators(opt: DiffOptions, nb_partitions: int, kmer_size: int,
     if opt.in_memory and not read:
         # -m/--in-memory: significant k-mers stay in RAM, no spill files
         # (and so nothing to resume from)
-        from kmdiff_tpu.io.accumulator import VectorAccumulator
+        from kmdiff_tpu_torch.io.accumulator import VectorAccumulator
 
         return [VectorAccumulator() for _ in range(nb_partitions)]
     return [

@@ -30,15 +30,15 @@ import time
 
 import torch
 
-from kmdiff_tpu.cmd.options import CountOptions, DiffOptions, dump_options
-from kmdiff_tpu.utils.logging import logger
-from kmdiff_tpu.utils.timer import Timer
+from kmdiff_tpu_torch.cmd.options import CountOptions, DiffOptions, dump_options
+from kmdiff_tpu_torch.utils.logging import logger
+from kmdiff_tpu_torch.utils.timer import Timer
 from kmdiff_tpu_torch.pipeline.fused import FusedFallback
 
 
 def _run_dir_complete(run_dir: str) -> bool:
     """True when every fof sample has its count file in every partition."""
-    from kmdiff_tpu.io.kmtricks import read_fof
+    from kmdiff_tpu_torch.io.kmtricks import read_fof
 
     fof_path = os.path.join(run_dir, "kmtricks.fof")
     counts = os.path.join(run_dir, "counts")
@@ -143,16 +143,16 @@ class _Spills:
 def _main_run_fused(copt: CountOptions, dopt: DiffOptions,
                     device: torch.device, count_files: bool,
                     timings: dict | None) -> dict:
-    from kmdiff_tpu.core.model import PoissonLikelihood
-    from kmdiff_tpu.io.kmtricks import (
+    from kmdiff_tpu_torch.core.model import PoissonLikelihood
+    from kmdiff_tpu_torch.io.kmtricks import (
         Fof,
         KmtricksConfig,
         get_total_kmer,
         hist_from_device,
         write_hist,
     )
-    from kmdiff_tpu.utils.exceptions import InputError
-    from kmdiff_tpu.utils.rss import get_peak_rss_mb
+    from kmdiff_tpu_torch.utils.exceptions import InputError
+    from kmdiff_tpu_torch.utils.rss import get_peak_rss_mb
     from kmdiff_tpu_torch.cmd.diff import (
         _make_accumulators,
         do_correction,

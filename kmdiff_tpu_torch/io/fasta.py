@@ -1,15 +1,101 @@
-"""FASTA/FASTQ -> 2-bit code stream (port of kmdiff_tpu/io/fasta.py::
-flat_codes onto the port's codec; the rest of that module is host code the
-port imports as it is)."""
+"""FASTA/FASTQ IO (port of kmdiff_tpu/io/fasta.py).
+
+Writer emits the reference's significant-k-mer record format
+(reference: include/kmdiff/aggregator.hpp:51-69):
+  >{rank}_pval={p:%g}_control={int(mean_control)}_case={mean_case}
+  {kmer}
+where mean_control is integer-truncated and mean_case printed as the C++
+default double format (integral doubles print without a decimal point).
+
+Reader handles FASTA and FASTQ, plain or gzip, multi-line sequences, and
+flat_codes turns a file into the 2-bit code stream of the counting engine
+(ops.codec).
+"""
 
 from __future__ import annotations
 
 import gzip
+import io
 
 import numpy as np
 
-from kmdiff_tpu.io.fasta import iter_records
 from kmdiff_tpu_torch.ops.codec import INVALID, encode_ascii_block
+
+
+def format_double(v: float) -> str:
+    """C++ fmt/std::format default double formatting: shortest round-trip,
+    no trailing '.0' on integral values."""
+    if v == int(v) and abs(v) < 1e16:
+        return str(int(v))
+    return repr(float(v))
+
+
+def format_header(rank: int, pvalue: float, mean_control: float, mean_case: float) -> str:
+    return (
+        f"{rank}_pval={pvalue:g}_control={int(mean_control)}_case="
+        f"{format_double(mean_case)}"
+    )
+
+
+class FastaWriter:
+    """Streaming FASTA writer (one-line sequences; k-mers are short)."""
+
+    def __init__(self, path: str):
+        self._f = open(path, "w")
+
+    def write(self, name: str, seq: str) -> None:
+        self._f.write(f">{name}\n{seq}\n")
+
+    def close(self) -> None:
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _open_text(path: str):
+    path = str(path)
+    if path.endswith(".gz"):
+        return io.TextIOWrapper(gzip.open(path, "rb"))
+    return open(path)
+
+
+def iter_records(path: str):
+    """Yield (name, seq) from FASTA or FASTQ, plain or .gz."""
+    with _open_text(path) as f:
+        line = f.readline()
+        while line and not line.strip():
+            line = f.readline()
+        if not line:
+            return
+        if line.startswith(">"):
+            name = line[1:].rstrip()
+            chunks: list[str] = []
+            for line in f:
+                if line.startswith(">"):
+                    yield name, "".join(chunks)
+                    name, chunks = line[1:].rstrip(), []
+                else:
+                    chunks.append(line.strip())
+            yield name, "".join(chunks)
+        elif line.startswith("@"):
+            while line:
+                name = line[1:].rstrip()
+                seq = f.readline().rstrip()
+                f.readline()  # '+' separator
+                f.readline()  # qualities
+                yield name, seq
+                line = f.readline()
+        else:
+            raise ValueError(f"{path}: not FASTA/FASTQ (starts with {line[:1]!r})")
+
+
+def read_sequences(path: str) -> list[bytes]:
+    """All sequences of a FASTA/FASTQ file as ascii bytes."""
+    return [seq.encode() for _name, seq in iter_records(path)]
 
 
 def flat_codes(path: str) -> np.ndarray:

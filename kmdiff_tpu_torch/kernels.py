@@ -52,10 +52,12 @@ KERNELS = ("lrt_filter", "canonical_kmers", "run_bounds", "compact",
            "geno_sample", "int_gram", "irls")
 
 #: -fmad=false and no --use_fast_math: the LR margin assumes IEEE logf,
-#: division and unfused multiply-adds (kmdiff_tpu/ops/lrt.py:41-46)
+#: division and unfused multiply-adds (kmdiff_tpu/ops/lrt.py:41-46);
+#: -Xptxas -v reports each kernel's registers, spills and shared memory
+#: (build_log)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _vp = ctypes.c_void_p
@@ -67,6 +69,7 @@ _f = ctypes.c_float
 #: C signatures: name -> (restype, argtypes)
 _SIGNATURES = {
     "kmd_lrt_filter": (_i, [_vp, _ll, _i, _i, _f, _f, _f, _vp, _vp, _vp, _vp, _vp]),
+    "kmd_canonical_kmers_tile_windows": (_ll, []),
     "kmd_canonical_kmers": (_i, [_vp, _ll, _i, _vp, _vp]),
     "kmd_run_flags": (_i, [_vp, _ll, _vp, _vp, _vp]),
     "kmd_run_lengths": (_i, [_vp, _ll, _vp, _vp, _vp]),
@@ -113,6 +116,9 @@ _lib_lock = threading.Lock()
 _lib = None
 #: seconds the last build took in this process (0.0 when loaded from cache)
 build_seconds = 0.0
+#: source name -> what nvcc printed compiling it (ptxas resource usage), from
+#: the last build in this process (empty when loaded from cache)
+build_log: dict[str, str] = {}
 
 
 def reset_launch_counts() -> None:
@@ -151,17 +157,20 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libkmdiff_kernels-{h.hexdigest()[:16]}.so")
 
 
-def _run(cmds: list[list[str]]) -> None:
-    """Run the commands at once and wait for all; raise on any failure."""
+def _run(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once and wait for all; raise on any failure.
+    Returns each command's standard error."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for c in cmds]
-    failed = []
+    failed, errs = [], []
     for cmd, proc in zip(cmds, procs):
         _out, err = proc.communicate()
+        errs.append(err)
         if proc.returncode != 0:
             failed.append(f"{' '.join(cmd)}\n{err}")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return errs
 
 
 def build() -> str:
@@ -179,7 +188,8 @@ def build() -> str:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     try:
-        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(cus, objs)])
+        errs = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(cus, objs)])
+        build_log.update(zip((os.path.basename(s)[:-3] for s in cus), errs))
         tmp = f"{out}.{tag}"
         _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
     finally:

@@ -56,7 +56,7 @@ _U32 = 0xFFFFFFFF
 
 def encode_ascii_block(seq_bytes: np.ndarray) -> np.ndarray:
     """ascii -> codes with INVALID for non-ACGT."""
-    from kmdiff_tpu.core.kmer import encode_bases
+    from kmdiff_tpu_torch.core.kmer import encode_bases
 
     codes, valid = encode_bases(seq_bytes)
     return np.where(valid, codes, INVALID)

@@ -6,7 +6,7 @@ with tot = sC + sK and rc, rk the cohort's control and case mass ratios.
 p <= t  <=>  LR >= erfcinv(t)^2, so the filter is one f32 comparison
 against a host constant; the f32 LR carries a per-row margin and the small
 survivor set is rescored exactly in f64 on the host
-(kmdiff_tpu.core.model), so final sets match kmdiff.
+(core.model), so final sets match kmdiff.
 
 ``lrt_block`` and ``lrt_filter_block`` are the plain PyTorch forms: they
 are the CPU path and the twin that the K-LRT kernel

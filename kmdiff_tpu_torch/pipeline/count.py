@@ -24,16 +24,17 @@ import time
 import numpy as np
 import torch
 
-from kmdiff_tpu.cmd.options import CountOptions
-from kmdiff_tpu.io.kmtricks import (
+from kmdiff_tpu_torch import native
+from kmdiff_tpu_torch.cmd.options import CountOptions
+from kmdiff_tpu_torch.io.kmtricks import (
     Fof,
     count_dtype_for,
     hist_from_counts,
     write_hist,
     write_kmer_file,
 )
-from kmdiff_tpu.utils.exceptions import InputError
-from kmdiff_tpu.utils.logging import logger
+from kmdiff_tpu_torch.utils.exceptions import InputError
+from kmdiff_tpu_torch.utils.logging import logger
 from kmdiff_tpu_torch.ops.codec import INVALID, MAX_K, fused_count, keys_to_words
 
 #: windows per device chunk. A chunk's int64 keys, their sorted copy and
@@ -91,20 +92,16 @@ def _merge_streams(streams):
     """Merge k-mer-sorted (kmers, counts) streams, summing the counts of
     equal k-mers (native k-way merge, 64 streams a level; numpy
     sort-reduce where the native library is missing)."""
-    try:
-        from kmdiff_tpu.native import merge_counted_streams
-    except ImportError:
-        merge_counted_streams = None
-    if merge_counted_streams is not None:
+    if native.available():
         while len(streams) > 64:
             streams = [
-                merge_counted_streams(
+                native.merge_counted_streams(
                     [s[0] for s in streams[i : i + 64]],
                     [s[1] for s in streams[i : i + 64]],
                 )
                 for i in range(0, len(streams), 64)
             ]
-        return merge_counted_streams(
+        return native.merge_counted_streams(
             [s[0] for s in streams], [s[1] for s in streams]
         )
     kmers = np.concatenate([s[0] for s in streams])
@@ -124,12 +121,8 @@ def _regroup_by_partition(kmers, counts, nb_partitions):
     stability keeps each partition's k-mers sorted, so the output is sorted
     by (partition, k-mer)."""
     parts = host_partition_ids(kmers, nb_partitions)
-    try:
-        from kmdiff_tpu.native import partition_regroup
-
-        return partition_regroup(parts, kmers, counts, nb_partitions)
-    except ImportError:
-        pass
+    if native.available():
+        return native.partition_regroup(parts, kmers, counts, nb_partitions)
     order = np.argsort(parts, kind="stable")
     return kmers[order], parts[order], counts[order]
 

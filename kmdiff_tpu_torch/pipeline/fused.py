@@ -40,8 +40,8 @@ import time
 import numpy as np
 import torch
 
-from kmdiff_tpu.io.accumulator import KmerSignBlock
-from kmdiff_tpu.utils.logging import logger
+from kmdiff_tpu_torch.io.accumulator import KmerSignBlock
+from kmdiff_tpu_torch.utils.logging import logger
 from kmdiff_tpu_torch import kernels
 from kmdiff_tpu_torch.ops.codec import (
     HIST_BINS,
@@ -76,7 +76,7 @@ class ResidentStream:
     keys [U] int64 ascending and counts [U] int32 holding u32 are tight
     tensors (no sentinel tail, no slack). hist_uvec, n_distinct_pre and
     total_mass describe the sample BEFORE hard-min, as the histogram does
-    (kmdiff_tpu.io.kmtricks.hist_from_device)."""
+    (io.kmtricks.hist_from_device)."""
 
     keys: torch.Tensor
     counts: torch.Tensor

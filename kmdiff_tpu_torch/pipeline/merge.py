@@ -18,7 +18,7 @@ partition thread pool).
   the count-file path's chunks end too.
 
 Either way the small survivor set is rescored in exact f64 on the host
-(kmdiff_tpu.core.model), which reproduces kmdiff's p-values.
+(core.model), which reproduces kmdiff's p-values.
 
 Not ported yet (NotImplementedError): custom models and cohorts whose k-mer
 mass reaches 2^31.
@@ -34,11 +34,11 @@ import time
 import numpy as np
 import torch
 
-from kmdiff_tpu.core.model import IModel, PoissonLikelihood, Significance
-from kmdiff_tpu.io.accumulator import IAccumulator, KmerSignBlock
-from kmdiff_tpu.io.kmtricks import read_kmer_file
-from kmdiff_tpu.pipeline.popstrat import sample_mask
-from kmdiff_tpu.utils.logging import logger
+from kmdiff_tpu_torch.core.model import IModel, PoissonLikelihood, Significance
+from kmdiff_tpu_torch.io.accumulator import IAccumulator, KmerSignBlock
+from kmdiff_tpu_torch.io.kmtricks import read_kmer_file
+from kmdiff_tpu_torch.pipeline.popstrat import sample_mask
+from kmdiff_tpu_torch.utils.logging import logger
 from kmdiff_tpu_torch.ops.codec import keys_to_words
 from kmdiff_tpu_torch.ops.lrt import LrtParams, run_filter
 
@@ -140,8 +140,8 @@ class PartitionProcessor:
         """--save-sk: one partition's survivors' count matrix from its
         (kmers, count rows) parts (the reference writes only k-mers that
         pass the merge, merge.hpp:83-87)."""
-        from kmdiff_tpu.core.kmer import n_words
-        from kmdiff_tpu.io.kmtricks import write_matrix_file
+        from kmdiff_tpu_torch.core.kmer import n_words
+        from kmdiff_tpu_torch.io.kmtricks import write_matrix_file
 
         if sink:
             km = np.concatenate([m[0] for m in sink])
@@ -198,7 +198,7 @@ class PartitionProcessor:
         """Stream a prebuilt count matrix in bounded row blocks (rows are
         already merged, one distinct k-mer each); sampled geno rows and
         --save-sk survivors collect across blocks."""
-        from kmdiff_tpu.io.kmtricks import open_matrix_stream
+        from kmdiff_tpu_torch.io.kmtricks import open_matrix_stream
 
         info, blocks = open_matrix_stream(path)
         total = nsign = n_ctrl = n_case = 0

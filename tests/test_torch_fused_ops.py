@@ -13,6 +13,7 @@ import torch
 import kmdiff_tpu.pipeline.count as jcount
 import kmdiff_tpu.pipeline.fused as jfused
 from kmdiff_tpu.core.model import PoissonLikelihood
+from kmdiff_tpu_torch.core.model import PoissonLikelihood as TPoissonLikelihood
 from kmdiff_tpu.io.accumulator import KmerSignBlock, VectorAccumulator
 from kmdiff_tpu.ops import codec as jcodec
 from kmdiff_tpu.parallel import runtime as jruntime
@@ -259,14 +260,16 @@ def test_fused_merge_matches_jax_on_same_streams(monkeypatch, chunk_rows):
     tot_c = sum(s.total_mass for s in jstreams[:nbc])
     tot_k = sum(s.total_mass for s in jstreams[nbc:])
     thr = 0.2
-    model = PoissonLikelihood(nbc, nbk, [s.total_mass for s in jstreams[:nbc]],
-                              [s.total_mass for s in jstreams[nbc:]])
+    totals = ([s.total_mass for s in jstreams[:nbc]],
+              [s.total_mass for s in jstreams[nbc:]])
+    model = PoissonLikelihood(nbc, nbk, *totals)
     assert tot_c and tot_k
     accs_j = [VectorAccumulator() for _ in range(P)]
     accs_t = [VectorAccumulator() for _ in range(P)]
     res_j = jfused.fused_merge(JaxProcessor(model, nbc, nbk, threshold=thr),
                                accs_j, jstreams, 21, P)
-    res_t = fused.fused_merge(PartitionProcessor(model, nbc, nbk, thr, CPU),
+    res_t = fused.fused_merge(PartitionProcessor(TPoissonLikelihood(nbc, nbk, *totals),
+                                                 nbc, nbk, thr, CPU),
                               accs_t, [_port_stream(s) for s in jstreams], P)
     assert res_t == tuple(res_j)
     assert res_t[1] > 0

@@ -1,6 +1,9 @@
 """The CUDA kernels of kmdiff_tpu_torch against their plain PyTorch twins
 on the card, at small shapes with edge cases (empty inputs, ragged tails,
-runs that cross tiles, k=1 and k=32); K-CMP also at five densities from
+runs that cross tiles, k=1 and k=32); K-EXT at k = 1, 2, 15, 21, 31, 32
+from one window to the largest count chunk, with an INVALID code at every
+offset of a thread's run and of a tile's halo, all INVALID, and on views at
+byte offsets 1..15; K-CMP also at five densities from
 none to all rows, at more tiles than the card holds resident, on
 misaligned views, on reused memory and from four host threads; K-ASM with
 1, 2 and 20 streams, empty slices and both packings; K-WRUN with runs of 1
@@ -71,6 +74,72 @@ def test_canonical_kmers(dev, k, n):
     codes[: min(n, 40)] = 3
     c = torch.from_numpy(codes).to(dev)
     _eq(codec.canonical_kmers(c, k), codec.canonical_kmers_plain(c, k))
+
+
+K_EDGES = [1, 2, 15, 21, 31, 32]
+
+
+def _ext_check(c, k):
+    _eq(codec.canonical_kmers(c, k), codec.canonical_kmers_plain(c, k))
+
+
+@pytest.mark.parametrize("k", K_EDGES)
+def test_canonical_kmers_ragged_sizes(dev, k):
+    """N from k (one window) to the largest count chunk, around a tile."""
+    tile = kernels.lib().kmd_canonical_kmers_tile_windows()
+    rng = np.random.default_rng(k)
+    for n in (k, k + 1, tile + k - 2, tile + k - 1, tile + k,
+              (1 << 24) - 128 + k - 1):
+        codes = rng.integers(0, 4, n).astype(np.uint8)
+        codes[rng.random(n) < 0.003] = codec.INVALID
+        _ext_check(torch.from_numpy(codes).to(dev), k)
+
+
+@pytest.mark.parametrize("k", K_EDGES)
+def test_canonical_kmers_invalid_at_every_offset(dev, k):
+    """One INVALID code (and a run of two) at every offset of the first
+    thread's run, around the boundary between two threads' runs and around
+    the tile edge and its halo, in a 3-tile stream."""
+    tile = kernels.lib().kmd_canonical_kmers_tile_windows()
+    n = 3 * tile + k - 1
+    rng = np.random.default_rng(100 + k)
+    base = rng.integers(0, 4, n).astype(np.uint8)
+    span = 64 + k
+    positions = sorted({*range(0, span), *range(tile - span, tile + span),
+                        *range(2 * tile - 8, 2 * tile + k + 8), n - 1})
+    c = torch.from_numpy(base).to(dev)
+    for p in positions:
+        for run in (1, 2):
+            codes = c.clone()
+            codes[p : p + run] = int(codec.INVALID)
+            _ext_check(codes, k)
+
+
+@pytest.mark.parametrize("k", K_EDGES)
+def test_canonical_kmers_all_invalid(dev, k):
+    tile = kernels.lib().kmd_canonical_kmers_tile_windows()
+    for n in (k, tile + k + 5):
+        keys = codec.canonical_kmers(
+            torch.full((n,), int(codec.INVALID), dtype=torch.uint8, device=dev), k)
+        assert keys.numel() == n - k + 1
+        assert bool((keys == codec.SENTINEL).all())
+
+
+@pytest.mark.parametrize("k", K_EDGES)
+def test_canonical_kmers_misaligned_views(dev, k):
+    """A codes tensor that is a view at byte offsets 1..15 of its
+    allocation: the head is read by bytes, nothing is refused."""
+    tile = kernels.lib().kmd_canonical_kmers_tile_windows()
+    rng = np.random.default_rng(200 + k)
+    codes = rng.integers(0, 4, 2 * tile + 100).astype(np.uint8)
+    codes[rng.random(len(codes)) < 0.01] = codec.INVALID
+    base = torch.from_numpy(codes).to(dev)
+    assert base.data_ptr() % 16 == 0
+    for lead in range(1, 16):
+        for n in (k, k + 17, tile + k - 1 - lead, 2 * tile + 100 - lead):
+            view = base[lead : lead + n]
+            assert view.data_ptr() % 16 == lead
+            _ext_check(view, k)
 
 
 @pytest.mark.parametrize("n", [1, 4096, 4097, 100_003])

@@ -14,6 +14,7 @@ from kmdiff_tpu.io.accumulator import KmerSignBlock, VectorAccumulator
 from kmdiff_tpu.ops import merge_dev as jmerge
 from kmdiff_tpu.ops.lrt import LrtParams
 from kmdiff_tpu.pipeline.merge import PartitionProcessor as JaxProcessor
+from kmdiff_tpu_torch.core.model import PoissonLikelihood as TPoissonLikelihood
 from kmdiff_tpu_torch.ops import codec
 from kmdiff_tpu_torch.ops import merge_dev
 from kmdiff_tpu_torch.pipeline import merge as tmerge
@@ -114,8 +115,8 @@ def test_partition_merge_matches_jax_processor(chunk_rows, monkeypatch):
     rng = np.random.default_rng(11)
     S, nbc = 6, 3
     kmers, counts = _streams(rng, S)
-    model = PoissonLikelihood(nbc, S - nbc, [300_000] * nbc,
-                              [350_000] * (S - nbc))
+    totals = ([300_000] * nbc, [350_000] * (S - nbc))
+    model = PoissonLikelihood(nbc, S - nbc, *totals)
     threshold = 1e-4
     ref_acc = VectorAccumulator()
     ref = JaxProcessor(model, nbc, S - nbc, threshold)._process_device_merge(
@@ -123,7 +124,8 @@ def test_partition_merge_matches_jax_processor(chunk_rows, monkeypatch):
     if chunk_rows:
         monkeypatch.setattr(tmerge, "MAX_DEVICE_ROWS", chunk_rows)
     acc = VectorAccumulator()
-    res = tmerge.PartitionProcessor(model, nbc, S - nbc, threshold, CPU
+    res = tmerge.PartitionProcessor(TPoissonLikelihood(nbc, S - nbc, *totals),
+                                    nbc, S - nbc, threshold, CPU
                                     )._process_device_merge(0, kmers, counts, acc)
     assert (res.total_kmers, res.nb_sign, res.sign_controls, res.sign_cases) == (
         ref.total_kmers, ref.nb_sign, ref.sign_controls, ref.sign_cases)
@@ -137,12 +139,12 @@ def test_partition_merge_matches_jax_processor(chunk_rows, monkeypatch):
 
 
 def test_processor_rejects_unported_models():
-    class Custom(PoissonLikelihood):
+    class Custom(TPoissonLikelihood):
         pass
 
     with pytest.raises(NotImplementedError, match="plugins"):
         tmerge.PartitionProcessor(object(), 1, 1, 0.1, CPU)
-    wide = PoissonLikelihood(1, 1, [2**31], [1])
+    wide = TPoissonLikelihood(1, 1, [2**31], [1])
     with pytest.raises(NotImplementedError, match="wide sums"):
         tmerge.PartitionProcessor(wide, 1, 1, 0.1, CPU)
     # subclasses of the Poisson model keep the device path

@@ -1,10 +1,11 @@
-"""The port never imports JAX: in a fresh interpreter that refuses and
-records every `jax` import, kmdiff_tpu_torch simulates, counts, diffs and
-runs (the fused count -> diff) a tiny cohort on the CPU, then diffs and runs
-it again with population-stratification correction and --save-sk (which
-reach the JAX package's popstrat host helpers), and no import of JAX was
-even attempted (on a machine where JAX is installed, an attempt would load
-it)."""
+"""The port never imports JAX or the JAX package: in a fresh interpreter
+that refuses and records every import of `jax`, `jaxlib` or `kmdiff_tpu`
+(the exact top-level name, not `kmdiff_tpu_torch`), kmdiff_tpu_torch
+simulates, counts, diffs and runs (the fused count -> diff) a tiny cohort on
+the CPU, then diffs and runs it again with population-stratification
+correction and --save-sk, and no such import was even attempted (on a
+machine where JAX is installed, an attempt would load it). Neither the
+port's sources nor chip_smoke.py hold an import line of either."""
 
 import os
 import pathlib
@@ -22,11 +23,13 @@ _SCRIPT = textwrap.dedent("""
 
     attempts = []
 
+    BLOCKED = ("jax", "jaxlib", "kmdiff_tpu")
+
     class BlockJax(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
+            if name.split(".")[0] in BLOCKED:
                 attempts.append(name)
-                raise ImportError(f"jax is blocked: {name}")
+                raise ImportError(f"{name} is blocked")
             return None
 
     sys.meta_path.insert(0, BlockJax())
@@ -64,8 +67,7 @@ _SCRIPT = textwrap.dedent("""
         assert os.path.exists(os.path.join(root, out, "popstrat", "pcs.evec"))
     assert os.listdir(os.path.join(root, "out_p", "positive_kmer_matrix",
                                    "matrices"))
-    loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib"))
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     assert not attempts, attempts
     print("NOJAX_OK")
@@ -74,8 +76,8 @@ _SCRIPT = textwrap.dedent("""
 
 def test_port_runs_with_jax_blocked(tmp_path):
     env = dict(os.environ)
-    # without these, kmdiff_tpu/__init__ imports JAX for its compile-cache
-    # set-up unless the port has switched that off
+    # without these, kmdiff_tpu/__init__ would import JAX for its
+    # compile-cache set-up, were it ever imported
     env.pop("JAX_PLATFORMS", None)
     env.pop("KMDIFF_NO_JAX_CACHE", None)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -88,8 +90,11 @@ def test_port_runs_with_jax_blocked(tmp_path):
 
 
 def test_port_sources_never_import_jax():
-    pattern = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.MULTILINE)
-    sources = sorted(PORT.rglob("*.py"))
+    pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|kmdiff_tpu)(\.|\s|$)",
+                         re.MULTILINE)
+    assert pattern.search("    from kmdiff_tpu.io import lz4\n")
+    assert not pattern.search("from kmdiff_tpu_torch import kernels\n")
+    sources = [*sorted(PORT.rglob("*.py")), PORT.parent / "chip_smoke.py"]
     assert len(sources) >= 12
     for path in sources:
         assert not pattern.search(path.read_text()), path

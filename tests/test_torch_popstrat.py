@@ -305,6 +305,7 @@ def test_matrix_path_rows_geno_and_save_sk_match_jax(tmp_path):
     from kmdiff_tpu.io.accumulator import VectorAccumulator
     from kmdiff_tpu.io.kmtricks import write_matrix_file
     from kmdiff_tpu.pipeline.merge import PartitionProcessor as JaxProcessor
+    from kmdiff_tpu_torch.core.model import PoissonLikelihood as TPoissonLikelihood
     from kmdiff_tpu_torch.pipeline.merge import PartitionProcessor
 
     rng = np.random.default_rng(21)
@@ -315,8 +316,9 @@ def test_matrix_path_rows_geno_and_save_sk_match_jax(tmp_path):
     path = str(tmp_path / "matrix_2.count.lz4")
     write_matrix_file(path, kmers, counts, 31, 2)
     model = PoissonLikelihood(nc, nk, [10**6] * nc, [10**6] * nk)
+    tmodel = TPoissonLikelihood(nc, nk, [10**6] * nc, [10**6] * nk)
     outs = []
-    for name, make in (("t", lambda **kw: PartitionProcessor(model, nc, nk, 1e-3,
+    for name, make in (("t", lambda **kw: PartitionProcessor(tmodel, nc, nk, 1e-3,
                                                             CPU, **kw)),
                        ("j", lambda **kw: JaxProcessor(model, nc, nk, 1e-3, **kw))):
         save = tmp_path / name
