@@ -17,11 +17,18 @@ Run from the root of a checkout, with no arguments:
    one PyTorch call computes the same function, that call's time; K-EXT
    at 2^24 codes for k = 31, 15, 21, 32 and at a bench sample's 8,444,524
    codes, each also as device time (CUDA events around 20 launches queued
-   back to back); K-CMP at its dense shape (run starts), with and without
-   its payload, and its sparse one (LRT survivors), with its achieved
-   bandwidth and its launches and host syncs a call;
-   K-ASM on 20 streams into a ~2^24-row chunk in both packings and with
-   the full merge's sample ids, K-WRUN
+   back to back); K-RUN (run_encode) in its count form on 2^23 sorted keys
+   (random k-mers, eight runs of 2*10^4 copies, a 5,000-row sentinel tail)
+   beside torch.unique_consecutive, its merge form on 2^23 rows with int16
+   packed counts read through the sort's permutation, both without run
+   starts as sort_rle and merge_lrt call them (and checked with them), and
+   its dedup form on the same keys, each form's device time from
+   torch.profiler (the call waits for its count); K-CMP at its dense shape (the run starts of
+   K-RUN's input), with and without its payload, and its sparse one (LRT
+   survivors), with its achieved bandwidth and its launches and host syncs
+   a call; K-ASM on 20 streams into a ~2^24-row chunk in both packings and
+   with the full merge's sample ids, a chunk's whole call and its device
+   time (20 queued launches), the per-merge table timed apart; K-WRUN
    on three overlapping 2^22-key streams with hard-min 2, K-HIST on 2^23
    counts with a tail above 255; K-GENO on 2^23 run keys at rates 0.001 and
    0.05, K-ROWS for ~13,700 survivors and ~12,000 sampled starts of 2^23
@@ -53,7 +60,8 @@ Run from the root of a checkout, with no arguments:
 5. Population-stratification correction on phase 3's run directory with
    `-s 0.001 --cutoff 1 -c disabled --pop-correction --save-sk` and the
    default `--kmer-pca 0.001 --n-pc 2`: (a) `diff` on CUDA, which must
-   launch K-ROWS, K-GENO, K-GRAM, K-IRLS and K-LRT, then on the CPU: the
+   launch K-RUN, K-CMP, K-ROWS, K-GENO, K-GRAM, K-IRLS and K-LRT, then on
+   the CPU: the
    popstrat artifacts (.geno, .snp, .ind, .total, parfile.txt, pcs.evec)
    and the --save-sk matrices byte-identical, the FASTA the same k-mers
    with p-values within 1% relative, but for at most KNIFE_EDGES_MAX
@@ -71,10 +79,13 @@ Exits non-zero, printing no result, without CUDA or without the rest of the
 checkout. The line before the last is {"kernels": [...]}, one row a kernel
 with its launches on the main path it belongs to, its times, max_abs_err,
 bound_ms, bound_by and library_ms (null where no one PyTorch call computes
-its function); compact's row is its payload form ("form") and carries the
-index form as index_ms, index_plain_ms, index_bound_ms, index_bound_by and
-index_library_ms (torch.nonzero); the last line of standard output is the
-result:
+its function); canonical_kmers', run_bounds' and assemble_chunk's rows
+also carry device_ms; run_bounds' row is its count form ("form") and
+carries the merge form as merge_ms, merge_plain_ms, merge_device_ms,
+merge_bound_ms, merge_bound_by and merge_library_ms; compact's row is its
+payload form ("form") and carries the index form as index_ms,
+index_plain_ms, index_bound_ms, index_bound_by and index_library_ms
+(torch.nonzero); the last line of standard output is the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -226,72 +237,19 @@ def compare_kernels(dev) -> dict:
 
     out["canonical_kmers"] = compare_ext(dev, rng)
 
-    # K-RUN and K-CMP on 2^23 sorted keys: random k-mers, eight repeats of
-    # 2*10^4 copies each, and a sentinel tail
-    n = 1 << 23
-    raw = rng.integers(-(2**62), 2**62, n, dtype=np.int64)
-    raw[: 8 * 20_000] = np.repeat(raw[:8], 20_000)
-    raw[-5000:] = codec.SENTINEL
-    keys_s = torch.sort(torch.from_numpy(raw).to(dev)).values
-    flags, n_valid = codec.run_flags(keys_s)
-    flags_p, n_valid_p = codec.run_flags_plain(keys_s)
-    check_equal("run_flags", flags, flags_p)
-    check_equal("run_flags n_valid", n_valid, n_valid_p)
+    out["run_bounds"], keys_s = compare_runs(dev, rng)
+    n = keys_s.numel()
+    # K-CMP's dense shape: the run starts of K-RUN's count-form input, with
+    # their keys (the compaction the run starts once went through; K-CMP's
+    # row keeps that shape)
+    flags, _ = codec.run_flags_plain(keys_s)
     starts, run_keys = codec.compact(flags, keys_s)
     starts_p, run_keys_p = codec.compact_plain(flags, keys_s)
     check_equal("compact indices", starts, starts_p)
     check_equal("compact payload", run_keys, run_keys_p)
-    lengths = codec.run_lengths(starts, n_valid)
-    check_equal("run_lengths", lengths, codec.run_lengths_plain(starts, n_valid))
-    if int(lengths.max()) <= 10_000:
-        raise AssertionError("the run test input lost its long runs")
 
-    # group sums at the merge's shape: ~2 rows per distinct k-mer, packed
-    # int16 counts with the control flag in bit 15, read through the sort's
-    # permutation
-    half = rng.integers(-(2**62), 2**62, n // 2, dtype=np.int64)
-    mkeys = np.concatenate([half, np.where(rng.random(n // 2) < 0.6, half,
-                                           half ^ 0x5A5A)])
-    mcount = rng.integers(1, 300, n).astype(np.int16)
-    mcount[: n // 2] |= np.int16(-0x8000)
-    mkeys_s, perm = torch.sort(torch.from_numpy(mkeys).to(dev))
-    mcount_d = torch.from_numpy(mcount).to(dev)
-    mflags, mn_valid = codec.run_flags(mkeys_s)
-    mstarts, _ = codec.compact(mflags)
-    sums = codec.run_group_sums(mstarts, mn_valid, perm, mcount_d)
-    check_equal("run_group_sums", sums,
-                codec.run_group_sums_plain(mstarts, mn_valid, perm, mcount_d))
-
-    t_flags = median_ms(lambda: codec.run_flags(keys_s))
-    t_flags_p = median_ms(lambda: codec.run_flags_plain(keys_s))
-    t_len = median_ms(lambda: codec.run_lengths(starts, n_valid))
-    t_len_p = median_ms(lambda: codec.run_lengths_plain(starts, n_valid))
-    t_sums = median_ms(lambda: codec.run_group_sums(mstarts, mn_valid, perm, mcount_d))
-    t_sums_p = median_ms(
-        lambda: codec.run_group_sums_plain(mstarts, mn_valid, perm, mcount_d))
-    t_len_lib = median_ms(lambda: torch.diff(starts, append=n_valid))
-    U, mU = len(starts), len(mstarts)
-    # flags: keys in, flags and n_valid out; lengths: starts and n_valid in,
-    # int32 lengths out; group sums: starts, n_valid, the permutation and
-    # the int16 counts it reads in, [U, 2] int32 sums out
-    parts = {"run_flags": (t_flags, 9 * n + 8, n),
-             "run_lengths": (t_len, 12 * U + 8, U),
-             "run_group_sums": (t_sums, 16 * mU + 8 + 10 * n, 2 * n)}
-    for name, (t, nbytes, ops) in parts.items():
-        print(f"[K-RUN] {name}: {share(row(t, 0.0, 0.0, nbytes, ops))}")
-    r = row(t_flags + t_len + t_sums, t_flags_p + t_len_p + t_sums_p, 0.0,
-            sum(p[1] for p in parts.values()), sum(p[2] for p in parts.values()))
-    print(f"[K-RUN] run_flags 2^23 keys: kernel {t_flags:.4f} ms, plain "
-          f"{t_flags_p:.4f} ms; run_lengths {U} runs (longest "
-          f"{int(lengths.max())}): kernel {t_len:.4f} ms, plain {t_len_p:.4f} "
-          f"ms, library torch.diff {t_len_lib:.4f} ms; run_group_sums {mU} runs "
-          f"of 2^23 rows: kernel {t_sums:.4f} ms, plain {t_sums_p:.4f} ms; the "
-          f"three: {share(r)}; library: none for the three (torch.diff for "
-          f"run_lengths alone)")
-    out["run_bounds"] = r
-
-    # K-CMP, dense: the run starts above with their keys (codec.py sort_rle,
-    # merge_dev.py merge_lrt); times are whole calls, host read included
+    # K-CMP, dense: the run starts above with their keys; times are whole
+    # calls, host read included
     ms = median_ms(lambda: codec.compact(flags, keys_s))
     plain = median_ms(lambda: codec.compact_plain(flags, keys_s))
     costs, dev_ms = compact_costs(flags, keys_s)
@@ -306,7 +264,7 @@ def compare_kernels(dev) -> dict:
     out["compact"] = row(ms, plain, 0.0, floor, n, form="payload")
     print(f"[K-CMP] payload form: {share(out['compact'])}; library: none "
           f"(torch.nonzero, then a gather)")
-    # the index form (run_flags -> starts, merge_dev's survivors) is the one
+    # the index form (merge_dev's survivors and geno sample) is the one
     # function a library call computes: torch.nonzero; kept in the row as
     # index_* fields
     ms = median_ms(lambda: codec.compact(flags))
@@ -343,6 +301,128 @@ def compare_kernels(dev) -> dict:
     out["int_gram"] = compare_gram(dev, rng)
     out["irls"] = compare_irls(dev, rng)
     return out
+
+
+def run_inputs(dev, rng):
+    """K-RUN's phase-2 inputs, sorted on the card: the count form's 2^23
+    keys (random k-mers, eight runs of 2*10^4 copies, a 5,000-row sentinel
+    tail), and the merge form's 2^23 keys of ~1.4 rows a distinct k-mer with
+    the sort's permutation and int16 packed counts (control flag in bit
+    15). -> (keys_s, mkeys_s, perm, mcount)."""
+    import numpy as np
+    import torch
+
+    from kmdiff_tpu_torch.ops import codec
+
+    n = 1 << 23
+    raw = rng.integers(-(2**62), 2**62, n, dtype=np.int64)
+    raw[: 8 * 20_000] = np.repeat(raw[:8], 20_000)
+    raw[-5000:] = codec.SENTINEL
+    keys_s = torch.sort(torch.from_numpy(raw).to(dev)).values
+    half = rng.integers(-(2**62), 2**62, n // 2, dtype=np.int64)
+    mkeys = np.concatenate([half, np.where(rng.random(n // 2) < 0.6, half,
+                                           half ^ 0x5A5A)])
+    mcount = rng.integers(1, 300, n).astype(np.int16)
+    mcount[: n // 2] |= np.int16(-0x8000)
+    mkeys_s, perm = torch.sort(torch.from_numpy(mkeys).to(dev))
+    return keys_s, mkeys_s, perm, torch.from_numpy(mcount).to(dev)
+
+
+def assemble_plan():
+    """K-ASM's phase-2 chunk plan: 20 streams of 900,000 rows, slices of
+    780,000-850,000 rows (stream 3 empty). -> (S, U, starts, lens)."""
+    import numpy as np
+
+    S, U = N_CONTROLS + N_CASES, 900_000
+    rng = np.random.default_rng(11)
+    lens = rng.integers(780_000, 850_000, S)
+    lens[3] = 0  # a stream with nothing in this key range
+    return S, U, rng.integers(0, U - lens + 1), lens
+
+
+def compare_runs(dev, rng):
+    """K-RUN (codec.run_encode) at phase 2's shapes: the count form on 2^23
+    sorted keys (random k-mers, eight runs of 2*10^4 copies, a 5,000-row
+    sentinel tail), the merge form on 2^23 rows of ~1.4 a run with int16
+    packed counts read through the sort's permutation, and the dedup form on
+    the merge's keys; every output, with and without the starts, held equal
+    to run_encode_plain's. Whole calls, device time (torch.profiler: the
+    call waits for its count) and the bound of the count and merge forms
+    without starts, as sort_rle and merge_dev.merge_lrt call them, and for
+    the count form torch.unique_consecutive, which computes the same run
+    keys and lengths. Returns (the count form's row with the
+    merge form's in merge_* fields, the count form's sorted keys)."""
+    import torch
+
+    from kmdiff_tpu_torch.ops import codec
+
+    keys_s, mkeys_s, perm, mcount_d = run_inputs(dev, rng)
+    n = keys_s.numel()
+    names = ("starts", "run keys", "n_valid", "third")
+
+    def check(label, got, want):
+        for name, g, w in zip(names, got, want):
+            if w is None:
+                if g is not None:
+                    raise AssertionError(f"run_encode {label} returned {name}")
+            else:
+                check_equal(f"run_encode {label} {name}", g, w)
+
+    got = codec.run_encode(keys_s, lengths=True)
+    check("count", got, codec.run_encode_plain(keys_s, lengths=True))
+    # the form sort_rle calls: no starts
+    count_args = dict(lengths=True, starts=False)
+    check("count without starts", codec.run_encode(keys_s, **count_args),
+          codec.run_encode_plain(keys_s, **count_args))
+    _starts, run_keys, n_valid, lengths = got
+    if int(lengths.max()) <= 10_000:
+        raise AssertionError("the run test input lost its long runs")
+    valid = keys_s[: int(n_valid)]
+    lib_keys, lib_counts = torch.unique_consecutive(valid, return_counts=True)
+    check_equal("unique_consecutive keys", lib_keys, run_keys)
+    check_equal("unique_consecutive counts", lib_counts, lengths.long())
+
+    mgot = codec.run_encode(mkeys_s, perm, mcount_d)
+    mwant = codec.run_encode_plain(mkeys_s, perm, mcount_d)
+    check("merge", mgot, mwant)
+    # the form merge_dev.merge_lrt calls: no starts (the full merge's
+    # run_rows reads them)
+    check("merge without starts", codec.run_encode(mkeys_s, perm, mcount_d, starts=False),
+          codec.run_encode_plain(mkeys_s, perm, mcount_d, starts=False))
+    check("dedup", codec.run_encode(mkeys_s), (*mwant[:3], None))
+
+    U, mU = got[0].numel(), mgot[0].numel()
+    # timed in the forms the main path calls: sort_rle's and merge_lrt's
+    count_call = lambda: codec.run_encode(keys_s, **count_args)  # noqa: E731
+    merge_call = lambda: codec.run_encode(mkeys_s, perm, mcount_d, starts=False)  # noqa: E731
+    ms, dev_ms = median_ms(count_call), device_work(count_call)[0]
+    plain = median_ms(lambda: codec.run_encode_plain(keys_s, **count_args))
+    lib_call = lambda: torch.unique_consecutive(valid, return_counts=True)  # noqa: E731
+    lib, lib_dev = median_ms(lib_call), device_work(lib_call)[0]
+    m_ms, m_dev = median_ms(merge_call), device_work(merge_call)[0]
+    m_plain = median_ms(lambda: codec.run_encode_plain(mkeys_s, perm, mcount_d,
+                                                       starts=False))
+    d_ms = median_ms(lambda: codec.run_encode(mkeys_s))
+    # count: the keys in; run keys, lengths and n_valid out; a compare a
+    # row. merge: the keys, the permutation and the int16 counts it reads
+    # in; run keys, [U, 2] int32 sums and n_valid out; a compare and an add
+    # a row
+    r = row(ms, plain, 0.0, 8 * n + 12 * U + 8, n, library=lib,
+            device_ms=dev_ms, form="count")
+    m = row(m_ms, m_plain, 0.0, 18 * n + 16 * mU + 8, 2 * n, device_ms=m_dev)
+    r.update({f"merge_{key}": m[key] for key in
+              ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by", "library_ms")})
+    print(f"[K-RUN] run_encode count form without starts, 2^23 keys -> {U} runs (longest "
+          f"{int(lengths.max())}): kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
+          f"plain {plain:.4f} ms, library torch.unique_consecutive {lib:.4f} "
+          f"ms (device {lib_dev:.4f} ms); {share(r)}, "
+          f"{r['bound_ms'] / dev_ms:.1%} of it over the device time")
+    print(f"[K-RUN] run_encode merge form without starts, 2^23 rows -> {mU} runs (int16 "
+          f"counts): kernel {m_ms:.4f} ms (device {m_dev:.4f} ms), plain "
+          f"{m_plain:.4f} ms; {share(m)}, {m['bound_ms'] / m_dev:.1%} of it over "
+          f"the device time; library: none (no one call); dedup form (with "
+          f"starts) on the same keys {d_ms:.4f} ms, equal to the merge form's runs")
+    return r, keys_s
 
 
 def compare_ext(dev, rng):
@@ -421,9 +501,7 @@ def compare_rows(dev, rng):
     count = torch.cat([c | (torch.iinfo(torch.int32).min if s < N_CONTROLS else 0)
                        for s, c in enumerate(counts)])
     keys_s, perm = torch.sort(torch.cat(keys))
-    flags, n_valid = codec.run_flags(keys_s)
-    starts, _ = codec.compact(flags)
-    lengths = codec.run_lengths(starts, n_valid)
+    starts, _keys, n_valid, lengths = codec.run_encode(keys_s, lengths=True)
     U = starts.numel()
     res = {}
     for label, n_sel, presence in (("survivors", 13_700, False),
@@ -547,37 +625,41 @@ def _random_streams(dev, S, U, seed, top):
 
 
 def compare_assemble(dev):
-    """K-ASM at the merge's shape: a ~2^24-row chunk from 20 streams."""
-    import numpy as np
+    """K-ASM at the merge's shape: a ~2^24-row chunk from 20 streams, in
+    both packings and with sample ids. The whole call is a chunk's
+    (ChunkTable.assemble: outputs allocated, one launch); the table, built
+    once a merge, is timed apart."""
+    from kmdiff_tpu_torch.pipeline.fused import ChunkTable, assemble_chunk_plain
 
-    from kmdiff_tpu_torch.pipeline.fused import assemble_chunk, assemble_chunk_plain
-
-    S, U = N_CONTROLS + N_CASES, 900_000
-    rng = np.random.default_rng(11)
-    lens = rng.integers(780_000, 850_000, S)
-    lens[3] = 0  # a stream with nothing in this key range
-    starts = rng.integers(0, U - lens + 1)
+    S, U, starts, lens = assemble_plan()
     res = {}
     # the full merge's chunks (popstrat, --save-sk) are p32 with sample ids
     for name, pack16, top, ids in (("p16", True, 1 << 15, False),
                                    ("p32", False, 1 << 32, False),
                                    ("p32 + sample ids", False, 1 << 31, True)):
         keys, counts = _random_streams(dev, S, U, 3, top)
-        args = (keys, counts, starts, lens, N_CONTROLS, pack16, ids)
-        got, want = assemble_chunk(*args), assemble_chunk_plain(*args)
+        table = ChunkTable(keys, counts, starts, lens, N_CONTROLS)
+        got = table.assemble(0, pack16, ids)
+        want = assemble_chunk_plain(keys, counts, starts, lens, N_CONTROLS, pack16, ids)
         for part, g, w in zip(("keys", "counts", "sample ids"), got, want):
             check_equal(f"assemble_chunk {name} {part}", g, w)
-        ms = median_ms(lambda: assemble_chunk(*args))
-        plain = median_ms(lambda: assemble_chunk_plain(*args))
+        ms = median_ms(lambda: table.assemble(0, pack16, ids))
+        dev_ms = events_ms(lambda: table.assemble(0, pack16, ids))
+        build = median_ms(lambda: ChunkTable(keys, counts, starts, lens, N_CONTROLS))
+        plain = median_ms(lambda: assemble_chunk_plain(keys, counts, starts, lens,
+                                                       N_CONTROLS, pack16, ids))
         # each row's key and u32 count in; its key, packed count and (full
         # mode) sample id out
         rows = int(lens.sum())
         res[name] = row(ms, plain, 0.0,
                         rows * (12 + 8 + (2 if pack16 else 4) + (2 if ids else 0)),
-                        rows)
+                        rows, device_ms=dev_ms)
         print(f"[K-ASM] assemble_chunk {S} streams -> {rows} rows "
-              f"({name}): kernel {ms:.4f} ms, plain {plain:.4f} ms; "
-              f"{share(res[name])}; library: none (no one call)")
+              f"({name}): kernel {ms:.4f} ms (device {dev_ms:.4f} ms over 20 "
+              f"queued launches; the table, once a merge, {build:.4f} ms), "
+              f"plain {plain:.4f} ms; {share(res[name])}, "
+              f"{res[name]['bound_ms'] / dev_ms:.1%} of it over the device "
+              f"time; library: none (no one call)")
     return res["p16"]
 
 
@@ -591,12 +673,10 @@ def compare_weighted_runs(dev):
     keys, counts = _random_streams(dev, 3, 1 << 22, 5, 40)
     keys, weights = torch.cat(keys), torch.cat(counts)
     keys_s, perm = torch.sort(keys)
-    flags, n_valid = codec.run_flags(keys_s)
-    starts, _ = codec.compact(flags)
+    starts, _keys, n_valid, run_rows = codec.run_encode(keys_s, lengths=True)
     args = (starts, n_valid, perm, weights)
     sums = codec.weighted_run_sums(*args)
     check_equal("weighted_run_sums", sums, codec.weighted_run_sums_plain(*args))
-    run_rows = codec.run_lengths(starts, n_valid)
     kept, kept_counts, _stats = codec.dedup_sum(keys, weights, hard_min=2)
     if kept.numel() != int((sums >= 2).sum()) or int(kept_counts.min()) < 2:
         raise AssertionError("dedup_sum: hard-min 2 kept the wrong runs")
@@ -899,8 +979,9 @@ def run_fused(dev, phase3) -> dict:
     return out
 
 
-#: the kernels popstrat adds to a path
-POP_KERNELS = ("run_rows", "geno_sample", "int_gram", "irls", "lrt_filter")
+#: the kernels a popstrat path launches
+POP_KERNELS = ("run_bounds", "compact", "run_rows", "geno_sample", "int_gram",
+               "irls", "lrt_filter")
 POP_ARTIFACTS = ("gwas_eigenstratX.geno", "gwas_eigenstratX.snp",
                  "gwas_eigenstratX.ind", "gwas_eigenstratX.total", "control.ind",
                  "case.ind", "parfile.txt", "pcs.evec")

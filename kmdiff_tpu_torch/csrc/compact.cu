@@ -15,13 +15,10 @@
 //      thread in the tile; the tile's set rows are staged in order in
 //      shared memory as 16-bit tile offsets, and every thread issues the
 //      payload loads of its first 8 outputs, which need no output offset
-//   3. decoupled look-back for the tile's output offset: the block takes
-//      its tile id from an atomic counter, so it only ever waits on tiles
-//      that running blocks hold and always progresses; it publishes its
-//      count, then warp 0 sums its predecessors' counts back to the
-//      nearest published prefix and publishes its own inclusive prefix.
-//      A status word is 64 bits, the flag in its top two, written with
-//      st.release.gpu and read with ld.acquire.gpu
+//   3. decoupled look-back for the tile's output offset (kmd_lookback.cuh,
+//      shared with K-RUN): the block takes its tile id from an atomic
+//      counter, publishes its count, and warp 0 sums its predecessors'
+//      counts back to the nearest published prefix
 //   4. consecutive threads write consecutive outputs, so the index and
 //      payload stores are contiguous; the payload reads follow the set
 //      rows (contiguous in a dense tile, only the set rows in a sparse one)
@@ -41,7 +38,7 @@
 // (its read and its write). On an H100 SXM at 700 W the kernel takes ~85 us
 // for 2^23 rows, 98% set, with a payload: ~72% of the card's 3.35 TB/s over
 // that floor (PERF.md).
-#include "kmd_common.cuh"
+#include "kmd_lookback.cuh"
 
 namespace {
 
@@ -50,22 +47,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;                // rows a thread: one 16-byte load
 constexpr int kTile = kThreads * kRows;  // 8192: a tile offset fits 16 bits
 constexpr int kUnroll = 8;               // payload loads in flight a thread
-
-constexpr unsigned long long kAggregate = 1ull << 62;  // tile count published
-constexpr unsigned long long kPrefix = 2ull << 62;     // inclusive prefix published
-constexpr unsigned long long kValue = kAggregate - 1;
-
-__device__ __forceinline__ unsigned long long load_acquire(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(unsigned long long* p,
-                                              unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
 
 // Bit j set where byte j of w is non-zero: the compare leaves 0x01 in each
 // such byte, and the multiply gathers the four bytes' low bits into bits
@@ -90,11 +71,10 @@ compact_kernel(const uint4* __restrict__ chunks, long long n_chunks, int lead,
   __shared__ int warp_total[kWarps];
   __shared__ int tile_id;
   __shared__ long long tile_offset;
-  unsigned long long* status = scratch + 1;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  if (threadIdx.x == 0) tile_id = static_cast<int>(atomicAdd(scratch, 1ull));
+  if (threadIdx.x == 0) tile_id = kmd::lookback::take_tile(scratch);
   __syncthreads();
   const int t = tile_id;
 
@@ -122,10 +102,7 @@ compact_kernel(const uint4* __restrict__ chunks, long long n_chunks, int lead,
     if (w < warp) rank += v;
     aggregate += v;
   }
-  if (threadIdx.x == 0) {
-    store_release(&status[t], (t == 0 ? kPrefix : kAggregate) |
-                                  static_cast<unsigned long long>(aggregate));
-  }
+  if (threadIdx.x == 0) kmd::lookback::publish(scratch, t, aggregate);
   for (unsigned b = bits; b; b &= b - 1) {
     rows[rank++] = static_cast<uint16_t>(threadIdx.x * kRows + __ffs(b) - 1);
   }
@@ -147,28 +124,8 @@ compact_kernel(const uint4* __restrict__ chunks, long long n_chunks, int lead,
 
   // 3. look-back (warp 0)
   if (warp == 0) {
-    long long exclusive = 0;
-    if (t > 0) {
-      for (long long last = t - 1;; last -= 32) {
-        const long long i = last - lane;
-        unsigned long long s = kPrefix;  // before tile 0: an empty prefix
-        if (i >= 0) {
-          do {
-            s = load_acquire(&status[i]);
-          } while (s < kAggregate);
-        }
-        const unsigned pre = __ballot_sync(0xffffffffu, s >= kPrefix);
-        const int stop = pre ? __ffs(pre) - 1 : 31;
-        long long x = lane <= stop ? static_cast<long long>(s & kValue) : 0;
-        for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-        exclusive += x;
-        if (pre) break;
-      }
-      if (lane == 0) {
-        store_release(&status[t], kPrefix | static_cast<unsigned long long>(
-                                                exclusive + aggregate));
-      }
-    }
+    const long long exclusive =
+        kmd::lookback::exclusive_prefix(scratch, t, aggregate, lane);
     if (lane == 0) {
       tile_offset = exclusive;
       if (t == n_tiles - 1) *n_set = exclusive + aggregate;

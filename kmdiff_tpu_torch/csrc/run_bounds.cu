@@ -1,119 +1,381 @@
-// K-RUN: run boundaries over sorted int64 keys, and per-run reductions.
+// K-RUN: one pass from sorted int64 keys to their runs of equal keys.
 //
 // Replaces the run-length half of kmdiff_tpu/ops/codec.py::sort_rle_core
-// (codec.py:377-395: run starts, per-run lengths) and the segment sums of
-// kmdiff_tpu/ops/merge_dev.py::merge_lrt_local's packed branch
-// (merge_dev.py:182-263: per-run control and case sums). Three entry points
-// share this file:
-//   kmd_run_flags       flags[i] = 1 where row i starts a run of equal keys
-//                       and is not the sentinel; n_valid = rows before the
-//                       sentinel tail
-//   kmd_run_lengths     per run j: next start (or n_valid) - start
-//   kmd_run_group_sums  per run j: [control sum, case sum] of the packed
-//                       counts of its rows, read through the sort's
-//                       permutation, into a [U, 2] int32 matrix
-// The run starts themselves come from K-CMP (compact.cu) over the flags.
+// (codec.py:341, :377-395: run starts, per-run lengths) and the segment sums
+// of kmdiff_tpu/ops/merge_dev.py::merge_lrt_local's packed branch
+// (merge_dev.py:75, :182-263: per-run control and case sums). One entry
+// point, kmd_run_encode, one launch, in one of three forms:
+//   dedup   starts [U] int64, run_keys [U] int64, n_valid [1] int64
+//           (starts only where the caller passes them: sort_rle and the
+//           packed merge need none)
+//   count   the same and lengths [U] int32 (next start, or the end of the
+//           sentinel-free rows, minus start)
+//   merge   the same and sums [U, 2] int32: each run's control and case sums
+//           of the packed counts of its rows, row r's count being
+//           counts[perm[r]] (the sort's permutation); the packing is
+//           merge_dev.py::build_triples_packed's:
+//             merge16: u16, count in bits 0..14, control flag in bit 15
+//             merge32: i32, count in bits 0..30, control flag in the sign bit
+// and U, the number of runs, into page-locked host memory. n_valid is the
+// number of rows before the sentinel tail (N without one).
 //
-// The TPU forms are gone: no reverse cummin to carry run ends back (XLA has
-// no cheap scatter on the TPU), no all-keys sort that drags the counts as
-// extra keys. On the GPU the sort carries a permutation, and the sums read
-// the counts through it.
+// The TPU forms are gone: no reverse cummin to carry run ends back, no
+// all-keys sort that drags the counts as extra keys, no second compaction
+// sort. On the GPU the sort carries a permutation and the sums read the
+// counts through it.
 //
-// Long runs: a count run can hold 10^5 copies of one repeat k-mer, so no
-// thread walks a count run. A length is the difference of two neighbouring
-// starts, O(1) per run. The group sums do walk their run, but a merge run
-// holds at most one row per input stream (2 after the host group pre-sum).
+// Bound on the H100: device memory. The floor reads the keys once (8N
+// bytes; the merge form also 8N of permutation and 2N or 4N of counts) and
+// writes 8 bytes a run (its key), 8 more where starts are asked for, and 4
+// (lengths) or 8 (sums). The design keeps
+// every intermediate out of device memory:
+//   1. a block owns a tile of 2048 rows, 8 rounds of 256 threads (1024
+//      rows, 4 rounds, in the merge forms, whose permutation reads and
+//      count gathers double a row's registers); round j reads rows
+//      j*256 .. j*256+255 of the tile, 8 bytes a lane, so every
+//      load of a warp is one contiguous 256-byte line; all the rounds'
+//      loads (and the merge form's permutation reads, then their count
+//      gathers) are issued before any is used. A row's predecessor comes
+//      from the next lane down by a shuffle (lane 0 reads it: the key just
+//      before the warp's rows, from the line its neighbour just fetched)
+//   2. a row is a boundary where its key differs from its predecessor's: a
+//      run start, or the first row of the sentinel tail. The boundaries
+//      stay in registers as one warp ballot a round; a scan over the
+//      (round, warp) counts ranks them, and their tile offsets and keys are
+//      staged in order in shared memory, so a run's end is the next staged
+//      boundary. The merge form adds each row's count into its run's slot
+//      in shared memory (shared atomics, exact in int32)
+//   3. decoupled look-back (kmd_lookback.cuh, shared with K-CMP) gives the
+//      tile its output offset, while a second warp finishes the tile's last
+//      run if it crosses the tile's edge: the count form by one thread's
+//      galloping and then binary search for the first different key (a
+//      count run may hold 10^5 copies of one repeat k-mer; no thread walks
+//      it), the merge form by the warp reading 32 rows a step (a merge run
+//      holds at most one row a stream, so that is at most S rows). Rows
+//      before a tile's first boundary belong to an earlier tile's run
+//   4. consecutive threads write consecutive runs from shared memory:
+//      starts, run_keys and lengths or sums are each one contiguous store
+//      stream, and no store waits on a load from device memory
+// The thread that holds the first sentinel row writes n_valid (without a
+// sentinel tail, the one that holds row N - 1); the last tile writes U.
 //
-// Bound on the H100: device memory. Flags read 8 bytes and write 1 per row;
-// lengths read 16 bytes and write 4 per run; group sums gather 8 + 2..4
-// bytes per row through the permutation (random reads) and write 8 per run.
-#include "kmd_common.cuh"
+// Scratch: int64 [1 + n_tiles], n_tiles = ceil(N / tile rows), zeroed here
+// with cudaMemsetAsync. One memset, one kernel and one host sync a call.
+#include "kmd_lookback.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
-__global__ void run_flags_kernel(const int64_t* __restrict__ keys, long long N,
-                                 uint8_t* __restrict__ flags,
-                                 int64_t* __restrict__ n_valid) {
-  long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (i >= N) return;
-  int64_t key = keys[i];
-  bool valid = key != kmd::kSentinel;
-  flags[i] = (valid && (i == 0 || keys[i - 1] != key)) ? 1 : 0;
-  // keys are sorted, so the sentinels form the tail: the last valid row
-  // is the only one whose successor is missing or a sentinel
-  if (valid && (i + 1 == N || keys[i + 1] == kmd::kSentinel)) *n_valid = i + 1;
+enum Form { kDedup = 0, kCount = 1, kMerge16 = 2, kMerge32 = 3 };
+
+// Rows a thread: 8 (a 2048-row tile) in the count and dedup forms, 4 (1024
+// rows) in the merge forms, whose permutation reads and count gathers
+// double a row's registers and whose per-run sums take shared memory.
+// Smaller tiles fill the SMs with more blocks (tools/krun_tiles.py, on an
+// H100 SXM at 700 W: the count form took 0.1315 ms at 4096-row tiles and
+// 0.1135-0.118 ms at 2048, the merge form 0.211 ms at 2048 and 0.175-0.181
+// ms at 1024). The scan needs kRounds * kWarps >= 32.
+template <int F>
+struct Tile {
+  static constexpr bool kMerge = F == kMerge16 || F == kMerge32;
+  static constexpr int kRounds = kMerge ? 4 : 8;
+  static constexpr int kRows = kThreads * kRounds;  // a tile offset fits 16 bits
+  static constexpr int kSlots = kRounds * kWarps;   // (round, warp) boundary counts
+  // The keys and the permutation are read once and the outputs written
+  // once; in the merge forms they are loaded and stored evict-first, so
+  // that the random count gathers, the one reuse, find the counts in L2.
+  static constexpr bool kStreamHints = kMerge;
+};
+
+template <bool kHint>
+__device__ __forceinline__ long long stream_load(const int64_t* p) {
+  const long long* q = reinterpret_cast<const long long*>(p);
+  return kHint ? __ldcs(q) : __ldg(q);
 }
 
-__device__ __forceinline__ long long run_end(const int64_t* starts, long long U,
-                                             long long j, const int64_t* n_valid) {
-  return j + 1 < U ? starts[j + 1] : *n_valid;
+template <bool kHint, typename T>
+__device__ __forceinline__ void stream_store(T* p, T v) {
+  if (kHint) __stcs(p, v); else *p = v;
 }
 
-__global__ void run_lengths_kernel(const int64_t* __restrict__ starts, long long U,
-                                   const int64_t* __restrict__ n_valid,
-                                   int32_t* __restrict__ lengths) {
-  long long j = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (j >= U) return;
-  lengths[j] = static_cast<int32_t>(run_end(starts, U, j, n_valid) - starts[j]);
-}
 
-// count_bytes == 2: u16 counts, control flag in bit 15, count in bits 0..14.
-// count_bytes == 4: i32 counts, control flag in the sign bit.
-// (kmdiff_tpu/ops/merge_dev.py::_pack_rows is the one source of the packing.)
-__global__ void run_group_sums_kernel(const int64_t* __restrict__ starts, long long U,
-                                      const int64_t* __restrict__ n_valid,
-                                      const int64_t* __restrict__ perm,
-                                      const void* __restrict__ counts, int count_bytes,
-                                      int32_t* __restrict__ sums) {
-  long long j = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (j >= U) return;
-  long long end = run_end(starts, U, j, n_valid);
-  int32_t s_c = 0;
-  int32_t s_k = 0;
-  for (long long r = starts[j]; r < end; ++r) {
-    long long p = perm[r];
-    int32_t v;
-    bool ctrl;
-    if (count_bytes == 2) {
-      uint16_t c = static_cast<const uint16_t*>(counts)[p];
-      ctrl = (c & 0x8000u) != 0;
-      v = static_cast<int32_t>(c & 0x7FFFu);
-    } else {
-      int32_t c = static_cast<const int32_t*>(counts)[p];
-      ctrl = c < 0;
-      v = c & 0x7FFFFFFF;
-    }
-    if (ctrl) s_c += v; else s_k += v;
+template <int F>
+__device__ __forceinline__ void unpack(const void* counts, long long p,
+                                       int32_t& v, bool& ctrl) {
+  if (F == kMerge16) {
+    const uint16_t c = __ldg(static_cast<const uint16_t*>(counts) + p);
+    ctrl = (c & 0x8000u) != 0;
+    v = static_cast<int32_t>(c & 0x7FFFu);
+  } else {
+    const int32_t c = __ldg(static_cast<const int32_t*>(counts) + p);
+    ctrl = c < 0;
+    v = c & 0x7FFFFFFF;
   }
-  sums[2 * j] = s_c;
-  sums[2 * j + 1] = s_k;
+}
+
+// the first row r >= lo with r >= N or keys[r] != key, given that every
+// row in [lo - 1, ...) up to that one holds key and the keys ascend
+__device__ long long run_end(const int64_t* keys, long long N, long long lo,
+                             int64_t key) {
+  long long hi = N;
+  for (long long step = 1;; step <<= 1) {
+    const long long probe = lo + step - 1;
+    if (probe >= N) break;
+    if (__ldg(keys + probe) != key) {
+      hi = probe;
+      break;
+    }
+    lo = probe + 1;
+  }
+  while (lo < hi) {
+    const long long mid = lo + (hi - lo) / 2;
+    if (__ldg(keys + mid) != key) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+run_encode_kernel(const int64_t* __restrict__ keys, long long N,
+                  const int64_t* __restrict__ perm, const void* __restrict__ counts,
+                  int n_tiles, int64_t* __restrict__ starts,
+                  int64_t* __restrict__ run_keys, int32_t* __restrict__ third,
+                  int64_t* __restrict__ n_valid, unsigned long long* scratch,
+                  long long* n_runs) {
+  constexpr bool kMerge = Tile<F>::kMerge;
+  constexpr int kRounds = Tile<F>::kRounds;
+  constexpr int kTile = Tile<F>::kRows;
+  constexpr int kSlots = Tile<F>::kSlots;
+  constexpr bool kHint = Tile<F>::kStreamHints;
+  __shared__ uint16_t rows[kTile];    // boundary tile offsets, ascending
+  __shared__ int64_t run_key[kTile];  // the key at each boundary
+  __shared__ __align__(16) int32_t sums[kMerge ? 2 * kTile : 4];
+  __shared__ int slot[kSlots + 1];    // counts, then exclusive prefixes
+  __shared__ int tile_id;
+  __shared__ int sentinel_at;       // tile offset of the first sentinel row
+  __shared__ long long tile_offset;
+  __shared__ long long last_end;    // count form: the end of the last run
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned lt = (1u << lane) - 1u;
+
+  if (threadIdx.x == 0) {
+    tile_id = kmd::lookback::take_tile(scratch);
+    sentinel_at = -1;
+  }
+  if (kMerge) {  // 16 bytes a store
+    int4* z = reinterpret_cast<int4*>(sums);
+    for (int i = threadIdx.x; i < 2 * kTile / 4; i += kThreads) z[i] = make_int4(0, 0, 0, 0);
+  }
+  __syncthreads();
+  const int t = tile_id;
+  const long long base = static_cast<long long>(t) * kTile;  // the tile's first row
+  const long long row0 = base + threadIdx.x;                 // this thread's in round 0
+
+  // 1. this thread's 16 rows (and, merging, their packed counts)
+  int64_t key[kRounds];
+#pragma unroll
+  for (int j = 0; j < kRounds; ++j) {
+    const long long i = row0 + j * kThreads;
+    key[j] = i < N ? stream_load<kHint>(keys + i) : kmd::kSentinel;
+  }
+  int32_t val[kRounds];
+  unsigned ctrl_bits = 0;
+  if (kMerge) {
+    long long p[kRounds];
+#pragma unroll
+    for (int j = 0; j < kRounds; ++j) {
+      const long long i = row0 + j * kThreads;
+      p[j] = i < N ? stream_load<kHint>(perm + i) : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < kRounds; ++j) {
+      bool c = false;
+      val[j] = 0;
+      if (p[j] >= 0) unpack<F>(counts, p[j], val[j], c);
+      ctrl_bits |= static_cast<unsigned>(c) << j;
+    }
+  }
+
+  // 2. boundaries: one ballot a round, counted by (round, warp)
+  unsigned ballot[kRounds];
+  unsigned valid_bits = 0;
+#pragma unroll
+  for (int j = 0; j < kRounds; ++j) {
+    const long long i = row0 + j * kThreads;
+    long long prev = __shfl_up_sync(0xffffffffu, static_cast<long long>(key[j]), 1);
+    if (lane == 0 && i > 0 && i <= N) prev = __ldg(keys + i - 1);
+    const bool real = i < N;
+    const bool valid = real && key[j] != kmd::kSentinel;
+    const bool boundary = real && (i == 0 || key[j] != prev);
+    valid_bits |= static_cast<unsigned>(valid) << j;
+    ballot[j] = __ballot_sync(0xffffffffu, boundary);
+    if (boundary && !valid) {
+      sentinel_at = static_cast<int>(i - base);
+      *n_valid = i;
+    } else if (valid && i == N - 1) {
+      *n_valid = N;
+    }
+    if (lane == 0) slot[j * kWarps + warp] = __popc(ballot[j]);
+  }
+  __syncthreads();
+  if (warp == 0) {  // exclusive scan of the 128 slot counts, 4 a lane
+    int c[kSlots / 32];
+    int sum = 0;
+#pragma unroll
+    for (int k = 0; k < kSlots / 32; ++k) {
+      c[k] = slot[lane * (kSlots / 32) + k];
+      sum += c[k];
+    }
+    int incl = sum;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    int run = incl - sum;
+#pragma unroll
+    for (int k = 0; k < kSlots / 32; ++k) {
+      slot[lane * (kSlots / 32) + k] = run;
+      run += c[k];
+    }
+    if (lane == 31) slot[kSlots] = incl;
+  }
+  __syncthreads();
+  const int n_bound = slot[kSlots];
+  const int aggregate = n_bound - (sentinel_at >= 0 ? 1 : 0);  // runs started here
+  if (threadIdx.x == 0) kmd::lookback::publish(scratch, t, aggregate);
+#pragma unroll
+  for (int j = 0; j < kRounds; ++j) {
+    const unsigned b = ballot[j];
+    const int before = slot[j * kWarps + warp] + __popc(b & lt);
+    if ((b >> lane) & 1u) {
+      rows[before] = static_cast<uint16_t>(j * kThreads + threadIdx.x);
+      run_key[before] = key[j];
+    }
+    // a valid row's run is the last boundary at or before it
+    const int r = before + static_cast<int>((b >> lane) & 1u) - 1;
+    if (kMerge && ((valid_bits >> j) & 1u) && r >= 0) {
+      atomicAdd(&sums[2 * r + (((ctrl_bits >> j) & 1u) ? 0 : 1)], val[j]);
+    }
+  }
+  __syncthreads();
+
+  // 3. the tile's output offset (warp 0) and its last run's end (warp 1)
+  if (warp == 0) {
+    const long long exclusive =
+        kmd::lookback::exclusive_prefix(scratch, t, aggregate, lane);
+    if (lane == 0) {
+      tile_offset = exclusive;
+      if (t == n_tiles - 1) *n_runs = exclusive + aggregate;
+    }
+  } else if (warp == 1 && F != kDedup && aggregate > 0 && aggregate == n_bound) {
+    // the last run ends at no boundary in this tile: it may cross the edge
+    const long long edge = min(base + kTile, N);
+    const int64_t last = run_key[aggregate - 1];
+    if (F == kCount) {
+      if (lane == 0) last_end = run_end(keys, N, edge, last);
+    } else {
+      int32_t s_c = 0;
+      int32_t s_k = 0;
+      for (long long r0 = edge;; r0 += 32) {
+        const long long r = r0 + lane;
+        const bool in = r < N && __ldg(keys + r) == last;
+        if (in) {
+          int32_t v;
+          bool c;
+          unpack<F>(counts, __ldg(perm + r), v, c);
+          if (c) s_c += v; else s_k += v;
+        }
+        if (__ballot_sync(0xffffffffu, in) != 0xffffffffu) break;
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        s_c += __shfl_xor_sync(0xffffffffu, s_c, o);
+        s_k += __shfl_xor_sync(0xffffffffu, s_k, o);
+      }
+      if (lane == 0) {
+        sums[2 * (aggregate - 1)] += s_c;
+        sums[2 * (aggregate - 1) + 1] += s_k;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 4. the tile's runs at its offset, all from shared memory
+#pragma unroll 4
+  for (int p = threadIdx.x; p < aggregate; p += kThreads) {
+    const long long r = base + rows[p];
+    const long long o = tile_offset + p;
+    if (starts != nullptr) stream_store<kHint>(reinterpret_cast<long long*>(starts) + o, r);
+    stream_store<kHint>(reinterpret_cast<long long*>(run_keys) + o,
+                 static_cast<long long>(run_key[p]));
+    if (F == kCount) {
+      stream_store<kHint>(third + o, static_cast<int32_t>(
+                                  (p + 1 < n_bound ? base + rows[p + 1] : last_end) - r));
+    } else if (kMerge) {
+      stream_store<kHint>(reinterpret_cast<int2*>(third) + o, reinterpret_cast<const int2*>(sums)[p]);
+    }
+  }
+}
+
+template <int F>
+void launch(const int64_t* keys, long long N, const int64_t* perm,
+            const void* counts, int n_tiles, int64_t* starts, int64_t* run_keys,
+            int32_t* third, int64_t* n_valid, int64_t* scratch, long long* n_runs,
+            cudaStream_t stream) {
+  run_encode_kernel<F><<<static_cast<unsigned>(n_tiles), kThreads, 0, stream>>>(
+      keys, N, perm, counts, n_tiles, starts, run_keys, third, n_valid,
+      reinterpret_cast<unsigned long long*>(scratch), n_runs);
 }
 
 }  // namespace
 
-KMD_API int kmd_run_flags(const int64_t* keys, long long N, uint8_t* flags,
-                          int64_t* n_valid, cudaStream_t stream) {
-  run_flags_kernel<<<kmd::grid_for(N, kThreads), kThreads, 0, stream>>>(
-      keys, N, flags, n_valid);
-  return static_cast<int>(cudaGetLastError());
+// rows a tile in the given form
+KMD_API long long kmd_run_encode_tile_rows(int form) {
+  return form == kDedup || form == kCount ? Tile<kCount>::kRows : Tile<kMerge16>::kRows;
 }
 
-KMD_API int kmd_run_lengths(const int64_t* starts, long long U,
-                            const int64_t* n_valid, int32_t* lengths,
-                            cudaStream_t stream) {
-  run_lengths_kernel<<<kmd::grid_for(U, kThreads), kThreads, 0, stream>>>(
-      starts, U, n_valid, lengths);
-  return static_cast<int>(cudaGetLastError());
-}
-
-KMD_API int kmd_run_group_sums(const int64_t* starts, long long U,
-                               const int64_t* n_valid, const int64_t* perm,
-                               const void* counts, int count_bytes,
-                               int32_t* sums, cudaStream_t stream) {
-  if (count_bytes != 2 && count_bytes != 4) return static_cast<int>(cudaErrorInvalidValue);
-  run_group_sums_kernel<<<kmd::grid_for(U, kThreads), kThreads, 0, stream>>>(
-      starts, U, n_valid, perm, counts, count_bytes, sums);
-  return static_cast<int>(cudaGetLastError());
+// keys [N] int64 ascending, N > 0, 8-byte aligned; form 0 dedup, 1 count,
+// 2 merge16, 3 merge32; perm [N] and counts [N] for the merge forms (else
+// null); starts (or null, to write none) and run_keys with room for N rows;
+// third: lengths [N] int32
+// (count), sums [N, 2] int32 (merge) or null (dedup); n_valid [1]; scratch
+// as the header says; n_runs: page-locked host memory, written by the
+// kernel through the same pointer under unified addressing. Like K-CMP's
+// entry point this one waits for its kernel, so that *n_runs holds U when
+// it returns: the one host sync of a call.
+KMD_API int kmd_run_encode(const int64_t* keys, long long N, int form,
+                           const int64_t* perm, const void* counts,
+                           int64_t* starts, int64_t* run_keys, int32_t* third,
+                           int64_t* n_valid, int64_t* scratch, long long* n_runs,
+                           cudaStream_t stream) {
+  if (N <= 0 || form < kDedup || form > kMerge32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long tile = kmd_run_encode_tile_rows(form);
+  const long long n_tiles = (N + tile - 1) / tile;
+  cudaError_t e = cudaMemsetAsync(scratch, 0, (1 + n_tiles) * sizeof(int64_t), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int nt = static_cast<int>(n_tiles);
+  switch (form) {
+    case kDedup:
+      launch<kDedup>(keys, N, perm, counts, nt, starts, run_keys, third, n_valid,
+                     scratch, n_runs, stream);
+      break;
+    case kCount:
+      launch<kCount>(keys, N, perm, counts, nt, starts, run_keys, third, n_valid,
+                     scratch, n_runs, stream);
+      break;
+    case kMerge16:
+      launch<kMerge16>(keys, N, perm, counts, nt, starts, run_keys, third, n_valid,
+                       scratch, n_runs, stream);
+      break;
+    default:
+      launch<kMerge32>(keys, N, perm, counts, nt, starts, run_keys, third, n_valid,
+                       scratch, n_runs, stream);
+  }
+  e = cudaGetLastError();
+  if (e == cudaSuccess) e = cudaStreamSynchronize(stream);
+  return static_cast<int>(e);
 }

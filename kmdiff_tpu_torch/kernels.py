@@ -4,7 +4,7 @@ The kernels live in ``csrc/*.cu`` beside this file:
 
   lrt_filter       K-LRT   Poisson LR filter          (ops.lrt_kernel)
   canonical_kmers  K-EXT   canonical k-mer keys       (ops.codec)
-  run_bounds       K-RUN   run starts and sums        (ops.codec)
+  run_bounds       K-RUN   runs of sorted keys        (ops.codec)
   compact          K-CMP   ordered compaction         (ops.codec)
   assemble_chunk   K-ASM   merge chunk from resident  (pipeline.fused)
                            stream slices
@@ -26,9 +26,9 @@ is rebuilt and a stale library is never loaded.
 Each call of a kernel's C entry point (``launch``) adds one to that
 kernel's launch count (``launch_counts``); a caller resets the counts,
 drives a path and reads them to show the path went through the kernels. A
-C entry point returns ``cudaGetLastError()`` after its launches (K-CMP's,
-which returns a count, after waiting for its kernel) and ``launch`` raises
-on anything but 0.
+C entry point returns ``cudaGetLastError()`` after its launches (K-CMP's
+and K-RUN's, which return a count, after waiting for their kernel) and
+``launch`` raises on anything but 0.
 """
 
 from __future__ import annotations
@@ -71,12 +71,13 @@ _SIGNATURES = {
     "kmd_lrt_filter": (_i, [_vp, _ll, _i, _i, _f, _f, _f, _vp, _vp, _vp, _vp, _vp]),
     "kmd_canonical_kmers_tile_windows": (_ll, []),
     "kmd_canonical_kmers": (_i, [_vp, _ll, _i, _vp, _vp]),
-    "kmd_run_flags": (_i, [_vp, _ll, _vp, _vp, _vp]),
-    "kmd_run_lengths": (_i, [_vp, _ll, _vp, _vp, _vp]),
-    "kmd_run_group_sums": (_i, [_vp, _ll, _vp, _vp, _vp, _i, _vp, _vp]),
+    "kmd_run_encode_tile_rows": (_ll, [_i]),
+    "kmd_run_encode": (_i, [_vp, _ll, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                            _vp]),
     "kmd_compact_tile_rows": (_ll, []),
     "kmd_compact": (_i, [_vp, _ll, _vp, _vp, _vp, _vp, _vp, _vp]),
-    "kmd_assemble_chunk": (_i, [_vp, _i, _ll, _i, _vp, _vp, _vp, _vp]),
+    "kmd_assemble_chunk_tile_rows": (_ll, []),
+    "kmd_assemble_chunk": (_i, [_vp, _vp, _vp, _i, _i, _ll, _i, _vp, _vp, _vp, _vp]),
     "kmd_weighted_run_sums": (_i, [_vp, _ll, _vp, _vp, _vp, _vp, _vp]),
     "kmd_abundance_hist": (_i, [_vp, _ll, _vp, _vp]),
     "kmd_run_rows": (_i, [_vp, _ll, _vp, _vp, _ll, _vp, _vp, _vp, _i, _i, _vp, _vp]),

@@ -12,10 +12,11 @@ Kernels, each with its plain PyTorch twin in this module (the wrapper runs
 the twin for a CPU tensor and the CUDA kernel for a CUDA tensor):
 
   K-EXT canonical_kmers   codes [N] u8 -> keys [N-k+1] int64
-  K-RUN run_flags         sorted keys -> run-start flags, valid-row count
-        run_lengths       run starts -> run lengths
-        run_group_sums    run starts + permuted packed counts -> [U, 2]
-                          control/case sums
+  K-RUN run_encode        sorted keys -> run keys, run starts (unless the
+                          caller needs none), valid-row
+                          count, and run lengths or (through the sort's
+                          permutation) [U, 2] control/case sums of packed
+                          counts, in one pass
   K-CMP compact           mask (+ int64 payload) -> ascending set indices
                           (+ gathered payload)
   K-WRUN weighted_run_sums
@@ -33,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import threading
 
 import numpy as np
@@ -124,6 +126,8 @@ def canonical_kmers(codes: torch.Tensor, k: int) -> torch.Tensor:
 
 
 # -- K-RUN ---------------------------------------------------------------------
+# The plain twin composes the run's steps one tensor at a time: flags, K-CMP's
+# twin, then the lengths or the group sums.
 
 def run_flags_plain(keys: torch.Tensor):
     valid = keys != SENTINEL
@@ -133,45 +137,12 @@ def run_flags_plain(keys: torch.Tensor):
     return flags, n_valid
 
 
-def run_flags(keys: torch.Tensor):
-    """K-RUN: sorted keys [N] -> (flags [N] bool, set where a run of
-    equal non-sentinel keys starts; n_valid [1] int64, the rows before
-    the sentinel tail). Both stay on the device."""
-    if keys.device.type == "cpu":
-        return run_flags_plain(keys)
-    kernels.require_cuda_tensor("run_flags keys", keys, torch.int64)
-    N = keys.numel()
-    flags = torch.empty(N, dtype=torch.bool, device=keys.device)
-    n_valid = torch.zeros(1, dtype=torch.int64, device=keys.device)
-    if N:
-        with torch.cuda.device(keys.device):
-            kernels.launch("run_bounds", "kmd_run_flags", keys.data_ptr(), N,
-                           flags.data_ptr(), n_valid.data_ptr())
-    return flags, n_valid
-
-
 def _run_ends(starts: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
     return torch.cat([starts[1:], n_valid])
 
 
 def run_lengths_plain(starts: torch.Tensor, n_valid: torch.Tensor):
     return (_run_ends(starts, n_valid) - starts).to(torch.int32)
-
-
-def run_lengths(starts: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
-    """K-RUN: ascending run starts [U] + n_valid -> run lengths [U] int32
-    (each the gap to the next start; the last run ends at n_valid)."""
-    if starts.device.type == "cpu":
-        return run_lengths_plain(starts, n_valid)
-    kernels.require_cuda_tensor("run_lengths starts", starts, torch.int64)
-    kernels.require_cuda_tensor("run_lengths n_valid", n_valid, torch.int64)
-    U = starts.numel()
-    lengths = torch.empty(U, dtype=torch.int32, device=starts.device)
-    if U:
-        with torch.cuda.device(starts.device):
-            kernels.launch("run_bounds", "kmd_run_lengths", starts.data_ptr(),
-                           U, n_valid.data_ptr(), lengths.data_ptr())
-    return lengths
 
 
 def _unpack_ctrl(count: torch.Tensor):
@@ -197,29 +168,90 @@ def run_group_sums_plain(starts, n_valid, perm, count):
     return torch.stack(sums, 1).to(torch.int32)
 
 
-def run_group_sums(starts: torch.Tensor, n_valid: torch.Tensor,
-                   perm: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
-    """K-RUN: per run, the control and case sums of the packed counts of
-    its rows (row r of the sorted order is count[perm[r]]) -> [U, 2]
-    int32, controls in column 0."""
-    if starts.device.type == "cpu":
-        return run_group_sums_plain(starts, n_valid, perm, count)
-    kernels.require_cuda_tensor("run_group_sums starts", starts, torch.int64)
-    kernels.require_cuda_tensor("run_group_sums n_valid", n_valid, torch.int64)
-    kernels.require_cuda_tensor("run_group_sums perm", perm, torch.int64)
-    if count.dtype not in (torch.int16, torch.int32):
-        raise TypeError(f"packed counts must be int16 or int32, got {count.dtype}")
-    kernels.require_cuda_tensor("run_group_sums count", count, count.dtype)
-    U = starts.numel()
-    sums = torch.empty((U, 2), dtype=torch.int32, device=starts.device)
-    if U:
-        with torch.cuda.device(starts.device):
-            kernels.launch(
-                "run_bounds", "kmd_run_group_sums", starts.data_ptr(), U,
-                n_valid.data_ptr(), perm.data_ptr(), count.data_ptr(),
-                count.element_size(), sums.data_ptr(),
-            )
-    return sums
+def run_encode_plain(keys_s, perm=None, count=None, lengths: bool = False,
+                     starts: bool = True):
+    flags, n_valid = run_flags_plain(keys_s)
+    run_starts, run_keys = compact_plain(flags, keys_s)
+    if count is not None:
+        third = run_group_sums_plain(run_starts, n_valid, perm, count)
+    elif lengths:
+        third = run_lengths_plain(run_starts, n_valid)
+    else:
+        third = None
+    return run_starts if starts else None, run_keys, n_valid, third
+
+
+#: kmd_run_encode's merge forms by packed-count dtype (0 is the dedup
+#: form, 1 the count form)
+_MERGE_FORMS = {torch.int16: 2, torch.int32: 3}
+
+
+@functools.cache
+def _run_tile_rows(form: int) -> int:
+    return kernels.lib().kmd_run_encode_tile_rows(form)
+
+
+def run_encode(keys_s: torch.Tensor, perm: torch.Tensor | None = None,
+               count: torch.Tensor | None = None, lengths: bool = False,
+               starts: bool = True):
+    """K-RUN: sorted keys [N] int64 (sentinel tail allowed) -> (starts [U]
+    int64, the row where each run of equal non-sentinel keys starts, or
+    None unless starts; run_keys [U] int64, its key; n_valid [1] int64, the
+    rows before the sentinel tail; third), third being, with count (and
+    perm, the sort's permutation), [U, 2] int32 control and case sums of
+    the packed counts of each run's rows (row r's count is count[perm[r]],
+    int16 or int32 as merge_dev.build_triples_packed packs it); with
+    lengths, [U] int32 run lengths; else None.
+
+    One kernel, one memset and one host sync (U sizes the results): one
+    allocation holds the outputs at N rows each and the kernel's scratch,
+    and the results are views of it, which hold the whole allocation until
+    all are freed."""
+    if keys_s.device.type == "cpu":
+        return run_encode_plain(keys_s, perm, count, lengths, starts)
+    kernels.require_cuda_tensor("run_encode keys", keys_s, torch.int64)
+    N = keys_s.numel()
+    if count is None:
+        form = 1 if lengths else 0
+    else:
+        if perm is None or count.dtype not in (torch.int16, torch.int32):
+            raise TypeError("run_encode: the merge form takes perm and int16 "
+                            f"or int32 packed counts, got {count.dtype}")
+        kernels.require_cuda_tensor("run_encode perm", perm, torch.int64)
+        kernels.require_cuda_tensor("run_encode count", count, count.dtype)
+        if perm.numel() != N or count.numel() != N:
+            raise ValueError(f"run_encode: {N} keys, {perm.numel()} perm, "
+                             f"{count.numel()} counts")
+        form = _MERGE_FORMS[count.dtype]
+    n_tiles = -(-N // _run_tile_rows(form))
+    # int64 words: [run keys: N][n_valid: 1][scratch: 1 + n_tiles]
+    # [starts: N, if asked for][lengths: N int32 | sums: N x 2 int32]
+    at = N + 2 + n_tiles
+    third_at = at + N if starts else at
+    third_words = (0, (N + 1) // 2, N, N)[form]
+    buf = torch.empty(third_at + third_words, dtype=torch.int64,
+                      device=keys_s.device)
+    n_valid = buf[N : N + 1]
+    U = 0
+    if N:
+        n_runs = _count_slot()
+        base = buf.data_ptr()
+        with torch.cuda.device(keys_s.device):
+            kernels.launch("run_bounds", "kmd_run_encode", keys_s.data_ptr(), N,
+                           form, kernels.ptr(perm), kernels.ptr(count),
+                           base + 8 * at if starts else None, base,
+                           base + 8 * third_at if third_words else None,
+                           base + 8 * N, base + 8 * (N + 1),
+                           ctypes.addressof(n_runs))
+        U = n_runs.value
+    else:
+        n_valid.zero_()
+    third = None
+    if form == 1:
+        third = buf[third_at:].view(torch.int32)[:U]
+    elif form > 1:
+        third = buf[third_at:].view(torch.int32)[: 2 * U].view(U, 2)
+    return buf[at : at + U] if starts else None, buf[:U], n_valid, third
 
 
 # -- K-CMP ---------------------------------------------------------------------
@@ -268,8 +300,8 @@ _thread = threading.local()
 
 
 def _count_slot() -> ctypes.c_longlong:
-    """This thread's page-locked int64 that K-CMP writes its count into;
-    one a thread suffices, since a call waits for its kernel."""
+    """This thread's page-locked int64 that K-CMP and K-RUN write their
+    count into; one a thread suffices, since a call waits for its kernel."""
     slot = getattr(_thread, "compact_count", None)
     if slot is None:
         pinned = torch.empty(1, dtype=torch.int64, pin_memory=True)
@@ -367,11 +399,10 @@ def sort_rle(keys: torch.Tensor, with_hist: bool = False):
     """Sort keys and run-length encode them (the JAX package's
     sort_rle_core without weights): -> (distinct keys [U] ascending, counts
     [U] int32), and with_hist also RleStats with the histogram (K-HIST).
-    Sentinel keys are dropped. The keys are a [:U] view of K-CMP's buffer."""
-    keys_s = torch.sort(keys).values
-    flags, n_valid = run_flags(keys_s)
-    starts, run_keys = compact(flags, keys_s)
-    counts = run_lengths(starts, n_valid)
+    Sentinel keys are dropped. The keys and counts are [:U] views of
+    K-RUN's buffer, which writes no run starts here."""
+    _, run_keys, n_valid, counts = run_encode(torch.sort(keys).values,
+                                              lengths=True, starts=False)
     if not with_hist:
         return run_keys, counts
     return run_keys, counts, _stats(n_valid, counts, True)
@@ -393,13 +424,12 @@ def dedup_sum(keys: torch.Tensor, weights: torch.Tensor, hard_min: int = 1,
     weight sum, RleStats). Runs summing below hard_min are dropped, and the
     stats (max, histogram) describe the kept runs.
 
-    torch.sort with its permutation, run starts (K-RUN, K-CMP), the per-run
-    sums read through the permutation (K-WRUN), exact in int64. Each sum
+    torch.sort with its permutation, run starts (K-RUN), the per-run sums
+    read through the permutation (K-WRUN), exact in int64. Each sum
     must fit the u32 of the count files (as the JAX package's wrapped-u32
     sums assume); OverflowError otherwise."""
     keys_s, perm = torch.sort(keys)
-    flags, n_valid = run_flags(keys_s)
-    starts, run_keys = compact(flags, keys_s)
+    starts, run_keys, n_valid, _ = run_encode(keys_s)
     sums = weighted_run_sums(starts, n_valid, perm, weights)
     if hard_min > 1:
         run_keys, sums = keep_at_least(run_keys, sums, hard_min)
@@ -412,6 +442,6 @@ def dedup_sum(keys: torch.Tensor, weights: torch.Tensor, hard_min: int = 1,
 
 def fused_count(codes: torch.Tensor, k: int):
     """One code chunk -> its distinct canonical k-mer keys and counts
-    (the JAX package's fused_count_kernel): K-EXT, torch.sort, K-RUN and
-    K-CMP on the chunk's device."""
+    (the JAX package's fused_count_kernel): K-EXT, torch.sort and K-RUN on
+    the chunk's device."""
     return sort_rle(canonical_kmers(codes, k))

@@ -7,9 +7,10 @@ row: the count with the row's control flag in bit 15 (int16, when every
 count fits 15 bits) or in the sign bit (int32). On the device:
 
   torch.sort(keys)               the S-way merge; the permutation rides along
-  K-RUN run_flags, K-CMP         distinct k-mers: run starts and their keys
-  K-RUN run_group_sums           [U, 2] control/case sums, read through the
-                                 permutation
+  K-RUN run_encode               distinct k-mers in one pass: their keys and
+                                 [U, 2] control/case sums, read through the
+                                 permutation (and their starts, for the full
+                                 branch)
   K-LRT lrt_filter (S=2, nb_controls=1)
                                  f32 LR + margin keep on the [U, 2] sums
   K-CMP compact                  survivors' keys and sums
@@ -31,26 +32,19 @@ import numpy as np
 import torch
 
 from kmdiff_tpu_torch import kernels
-from kmdiff_tpu_torch.ops.codec import (
-    _run_ends,
-    compact,
-    run_flags,
-    run_group_sums,
-    words_to_keys,
-)
+from kmdiff_tpu_torch.ops.codec import _run_ends, compact, run_encode, words_to_keys
 from kmdiff_tpu_torch.ops.lrt_kernel import lrt_filter
 
 _U32 = 0xFFFFFFFF
 _SAMPLE_SEED = 0x51ED2700
 
 
-def _merge_runs(keys, count, ratio_c, ratio_k, lr_min):
-    """The merge and test both branches share: sort, run starts, group
-    sums, K-LRT, survivors."""
+def _merge_runs(keys, count, ratio_c, ratio_k, lr_min, starts: bool):
+    """The merge and test both branches share: sort, runs (their starts
+    only if asked for), group sums, K-LRT, survivors."""
     keys_s, perm = torch.sort(keys)
-    flags, n_valid = run_flags(keys_s)
-    starts, run_keys = compact(flags, keys_s)
-    sums = run_group_sums(starts, n_valid, perm, count)
+    starts, run_keys, n_valid, sums = run_encode(keys_s, perm, count,
+                                                 starts=starts)
     keep, _lr, _s_c, _s_k = lrt_filter(sums, 1, ratio_c, ratio_k, lr_min)
     hit, hit_keys = compact(keep, run_keys)
     return perm, n_valid, starts, run_keys, sums, hit, hit_keys
@@ -64,9 +58,9 @@ def merge_lrt(keys: torch.Tensor, count: torch.Tensor, ratio_c, ratio_k,
     build_triples_packed packs it. Returns (n_distinct, hit_keys [H]
     int64 ascending, hit_sums [H, 2] int32) with the survivors on the
     keys' device."""
-    _p, _nv, starts, _rk, sums, hit, hit_keys = _merge_runs(
-        keys, count, ratio_c, ratio_k, lr_min)
-    return starts.numel(), hit_keys, sums[hit]
+    _p, _nv, _st, run_keys, sums, hit, hit_keys = _merge_runs(
+        keys, count, ratio_c, ratio_k, lr_min, starts=False)
+    return run_keys.numel(), hit_keys, sums[hit]
 
 
 def merge_lrt_full(keys: torch.Tensor, count: torch.Tensor,
@@ -84,7 +78,7 @@ def merge_lrt_full(keys: torch.Tensor, count: torch.Tensor,
     of the run starts sampled at pca_thr (pca_threshold_u32) under
     pca_seed (want_geno), both in ascending key order."""
     perm, n_valid, starts, run_keys, sums, hit, hit_keys = _merge_runs(
-        keys, count, ratio_c, ratio_k, lr_min)
+        keys, count, ratio_c, ratio_k, lr_min, starts=True)
     rows = geno = None
     if want_rows:
         rows = run_rows(starts, n_valid, hit, perm, count, sample, nb_samples)

@@ -2,15 +2,16 @@
 reads them there (port of kmdiff_tpu/pipeline/fused.py: one device, the
 packed narrow merge and the full one, no group pre-aggregation).
 
-  per sample  K-EXT -> torch.sort -> K-RUN -> K-CMP -> K-HIST, one chunk;
+  per sample  K-EXT -> torch.sort -> K-RUN -> K-HIST, one chunk;
               several chunks: their streams concatenated -> dedup_sum
-              (torch.sort, K-RUN, K-CMP, K-WRUN, K-HIST); then hard-min
+              (torch.sort, K-RUN, K-WRUN, K-HIST); then hard-min
               (K-CMP). The sample's distinct keys and counts stay on the
               device (ResidentStream); its histogram goes to the host.
   merge       the streams' shared key space cut into ascending key-disjoint
-              chunks (plan_key_chunks) -> per chunk, one K-ASM launch
-              gathers every stream's slice into int64 keys + packed counts
-              -> merge_dev.merge_lrt (torch.sort, K-RUN, K-CMP, K-LRT) ->
+              chunks (plan_key_chunks), uploaded once (ChunkTable) -> per
+              chunk, one K-ASM launch gathers every stream's slice into
+              int64 keys + packed counts -> merge_dev.merge_lrt
+              (torch.sort, K-RUN, K-LRT, K-CMP for the survivors) ->
               exact f64 rescore on the host -> survivors routed to their
               partition's accumulator by the count's partition hash.
               Popstrat and --save-sk take the full merge: K-ASM writes each
@@ -112,12 +113,12 @@ def count_sample_resident(all_codes: list[np.ndarray], k: int, hard_min: int,
     else:
         # a chunk boundary splits a k-mer's occurrences into partial counts
         # in several chunk streams; dedup_sum adds them up (count's host
-        # k-way merge, on the device). Tight copies of the keys: K-CMP's
-        # are views of a 16-bytes-a-window buffer.
+        # k-way merge, on the device). Tight copies: K-RUN's outputs are
+        # views of a 12-bytes-a-window buffer.
         parts = []
         for chunk in chunks:
             keys_c, counts_c = fused_count(torch.from_numpy(chunk).to(device), k)
-            parts.append((keys_c.clone(), counts_c))
+            parts.append((keys_c.clone(), counts_c.clone()))
         keys_cat = torch.cat([p[0] for p in parts])
         weights = torch.cat([p[1] for p in parts])
         del parts
@@ -129,15 +130,15 @@ def count_sample_resident(all_codes: list[np.ndarray], k: int, hard_min: int,
 
 def _finalize_resident(keys, counts, stats, total_mass: int,
                        hard_min: int) -> ResidentStream:
-    """Hard-min after the histogram (the reference's order), then a tight
-    copy of the keys (a K-CMP view) for the life of the run; the counts
-    are tight already."""
+    """Hard-min after the histogram (the reference's order), then tight
+    copies of the keys and counts (views of K-RUN's or K-CMP's buffer) for
+    the life of the run."""
     n_pre = keys.numel()
     if hard_min > 1 and n_pre:
         keys, counts = keep_at_least(keys, counts, hard_min)
     U = keys.numel()
     # hard-min drops only counts below the max, so the max survives any kept row
-    return ResidentStream(keys.clone(), counts, U,
+    return ResidentStream(keys.clone(), counts.clone(), U,
                           stats.max_count if U else 0, stats.hist, n_pre,
                           total_mass)
 
@@ -178,56 +179,82 @@ def assemble_chunk_plain(keys_list, counts_list, starts, lens, nb_controls: int,
     return (*out, sample) if with_sample else out
 
 
-def assemble_chunk(keys_list: list[torch.Tensor],
-                   counts_list: list[torch.Tensor], starts, lens,
-                   nb_controls: int, pack16: bool, with_sample: bool = False):
-    """K-ASM: one merge chunk from the slices [starts[s], starts[s] +
-    lens[s]) of the S resident streams, in stream order -> (keys [N] int64,
-    counts [N] int16 (pack16: every count < 2^15, control flag in bit 15)
-    or int32 (control flag in the sign bit)), and with_sample a third
-    tensor, each row's stream index as [N] int16 holding u16 (the full
-    merge's sample ids). Streams before nb_controls are controls."""
-    dev = keys_list[0].device
-    if dev.type == "cpu":
-        return assemble_chunk_plain(keys_list, counts_list, starts, lens,
-                                    nb_controls, pack16, with_sample)
-    S = len(keys_list)
-    if S > 65535:
-        raise ValueError(f"assemble_chunk: {S} streams, at most 65535")
-    starts = np.asarray(starts, np.int64)
-    lens = np.asarray(lens, np.int64)
-    offsets = np.concatenate([[0], np.cumsum(lens)[:-1]])
-    N = int(lens.sum())
-    keys = torch.empty(N, dtype=torch.int64, device=dev)
-    count = torch.empty(N, dtype=torch.int16 if pack16 else torch.int32,
-                        device=dev)
-    sample = (torch.empty(N, dtype=torch.int16, device=dev) if with_sample
-              else None)
-    out = (keys, count, sample) if with_sample else (keys, count)
-    if not N:
-        return out
-    # [keys ptr, counts ptr, start, len, output offset, is_control] a stream,
-    # shipped from page-locked memory behind the launch
-    table = torch.empty((S, 6), dtype=torch.int64, pin_memory=True)
-    rows = table.numpy()
-    for s, (k, c) in enumerate(zip(keys_list, counts_list)):
-        kernels.require_cuda_tensor("assemble_chunk keys", k, torch.int64)
-        kernels.require_cuda_tensor("assemble_chunk counts", c, torch.int32)
-        if k.device != dev or c.numel() != k.numel():
-            raise ValueError("assemble_chunk: every stream's keys and counts "
-                             "must match and lie on one device")
-        if starts[s] < 0 or starts[s] + lens[s] > k.numel():
-            raise ValueError(f"assemble_chunk: slice [{starts[s]}, "
-                             f"{starts[s] + lens[s]}) outside stream {s} of "
-                             f"{k.numel()} rows")
-        rows[s] = (k.data_ptr(), c.data_ptr(), starts[s], lens[s], offsets[s],
-                   int(s < nb_controls))
-    table_d = table.to(dev, non_blocking=True)
-    with torch.cuda.device(dev):
-        kernels.launch("assemble_chunk", "kmd_assemble_chunk", table_d.data_ptr(),
-                       S, int(lens.max()), 2 if pack16 else 4, keys.data_ptr(),
-                       count.data_ptr(), kernels.ptr(sample))
-    return out
+class ChunkTable:
+    """The S resident streams and a key-range plan of C chunks (starts and
+    lens [C, S], or [S] for one chunk), as K-ASM reads them. The streams
+    are checked and every slice is bounds-checked once, when the table is
+    built (once a merge). On the card one device tensor then holds every
+    stream's keys and counts pointers, every chunk's slice starts and every
+    chunk's output offsets (exclusive prefix sums of its slice lengths),
+    uploaded in one copy; a chunk's assembly ships nothing, its launch reads
+    its row of the plan. The plan stays on the device for the whole merge,
+    so no host buffer is rewritten while a copy of it may be in flight.
+    Streams before nb_controls are controls."""
+
+    def __init__(self, keys_list: list[torch.Tensor],
+                 counts_list: list[torch.Tensor], starts, lens,
+                 nb_controls: int):
+        self.keys_list, self.counts_list = keys_list, counts_list
+        self.nb_controls = nb_controls
+        self.starts = np.atleast_2d(np.asarray(starts, np.int64))
+        self.lens = np.atleast_2d(np.asarray(lens, np.int64))
+        S = len(keys_list)
+        self.dev = dev = keys_list[0].device
+        self.N = self.lens.sum(1)
+        if dev.type == "cpu":
+            return
+        if S > 65535:
+            raise ValueError(f"assemble_chunk: {S} streams, at most 65535")
+        for k, c in zip(keys_list, counts_list):
+            kernels.require_cuda_tensor("assemble_chunk keys", k, torch.int64)
+            kernels.require_cuda_tensor("assemble_chunk counts", c, torch.int32)
+            if k.device != dev or c.numel() != k.numel():
+                raise ValueError("assemble_chunk: every stream's keys and counts "
+                                 "must match and lie on one device")
+        Us = np.array([k.numel() for k in keys_list], np.int64)
+        bad = (self.starts < 0) | (self.lens < 0) | (self.starts + self.lens > Us)
+        if bad.any():
+            c, s = np.argwhere(bad)[0]
+            a, n = self.starts[c, s], self.lens[c, s]
+            raise ValueError(f"assemble_chunk: slice [{a}, {a + n}) outside "
+                             f"stream {s} of {Us[s]} rows")
+        C = len(self.lens)
+        offsets = np.zeros((C, S + 1), np.int64)
+        np.cumsum(self.lens, 1, out=offsets[:, 1:])
+        ptrs = np.array([(k.data_ptr(), c.data_ptr())
+                         for k, c in zip(keys_list, counts_list)], np.int64)
+        # [pointers: S x 2][starts: C x S][offsets: C x (S + 1)]
+        self._table = torch.from_numpy(np.concatenate(
+            [ptrs.ravel(), self.starts.ravel(), offsets.ravel()])).to(dev)
+        base = self._table.data_ptr()
+        self._starts_at = base + 8 * 2 * S
+        self._offsets_at = self._starts_at + 8 * C * S
+
+    def assemble(self, c: int, pack16: bool, with_sample: bool = False):
+        """K-ASM: chunk c -> (keys [N] int64, counts [N] int16 (pack16:
+        every count < 2^15, control flag in bit 15) or int32 (control flag
+        in the sign bit)), and with_sample a third tensor, each row's stream
+        index as [N] int16 holding u16 (the full merge's sample ids)."""
+        if self.dev.type == "cpu":
+            return assemble_chunk_plain(self.keys_list, self.counts_list,
+                                        self.starts[c], self.lens[c],
+                                        self.nb_controls, pack16, with_sample)
+        N, S = int(self.N[c]), len(self.keys_list)
+        keys = torch.empty(N, dtype=torch.int64, device=self.dev)
+        count = torch.empty(N, dtype=torch.int16 if pack16 else torch.int32,
+                            device=self.dev)
+        sample = (torch.empty(N, dtype=torch.int16, device=self.dev)
+                  if with_sample else None)
+        if N:
+            with torch.cuda.device(self.dev):
+                kernels.launch("assemble_chunk", "kmd_assemble_chunk",
+                               self._table.data_ptr(),
+                               self._starts_at + 8 * c * S,
+                               self._offsets_at + 8 * c * (S + 1), S,
+                               self.nb_controls, N, 2 if pack16 else 4,
+                               keys.data_ptr(), count.data_ptr(),
+                               kernels.ptr(sample))
+        return (keys, count, sample) if with_sample else (keys, count)
 
 
 # -- chunk plan ----------------------------------------------------------------
@@ -319,19 +346,17 @@ def fused_merge(processor, accumulators, streams: list[ResidentStream],
     pack16 = (not full
               and max((s.max_count for s in streams), default=0) < 0x8000)
     starts, lens = plan_key_chunks(streams)
-    keys_list = [s.keys for s in streams]
-    counts_list = [s.counts for s in streams]
+    table = ChunkTable([s.keys for s in streams], [s.counts for s in streams],
+                       starts, lens, processor.nb_controls)
     racc = _RoutingAccumulator(accumulators, nb_partitions)
     geno_sink, matrix_sink = processor.new_sinks()
     total = nsign = n_ctrl = n_case = 0
     t0 = time.perf_counter()
     for c in range(len(starts)):
-        args = (keys_list, counts_list, starts[c], lens[c],
-                processor.nb_controls, pack16)
         if full:
-            keys, count, sample = assemble_chunk(*args, with_sample=True)
+            keys, count, sample = table.assemble(c, pack16, with_sample=True)
         else:
-            (keys, count), sample = assemble_chunk(*args), None
+            (keys, count), sample = table.assemble(c, pack16), None
         res = processor.merge_device_chunk(
             0, keys, count, racc, sample=sample, geno_sink=geno_sink,
             matrix_sink=matrix_sink)

@@ -78,15 +78,66 @@ def test_sort_rle_matches_jax_count(k):
 
 def test_run_kernels_plain_twins_on_sentinel_tail():
     keys = torch.tensor([-5, -5, 0, 7, 7, 7, codec.SENTINEL, codec.SENTINEL])
-    flags, n_valid = codec.run_flags(keys)
+    flags, n_valid = codec.run_flags_plain(keys)
     assert flags.tolist() == [True, False, True, True, False, False, False, False]
     assert n_valid.tolist() == [6]
-    starts, run_keys = codec.compact(flags, keys)
+    starts, run_keys, n_valid, lengths = codec.run_encode(keys, lengths=True)
     assert starts.tolist() == [0, 2, 3] and run_keys.tolist() == [-5, 0, 7]
-    assert codec.run_lengths(starts, n_valid).tolist() == [2, 1, 3]
+    assert n_valid.tolist() == [6] and lengths.tolist() == [2, 1, 3]
+    assert codec.run_encode(keys)[3] is None
+    no_starts = codec.run_encode(keys, lengths=True, starts=False)
+    assert no_starts[0] is None and no_starts[1].tolist() == [-5, 0, 7]
+    assert no_starts[3].tolist() == [2, 1, 3]
+    perm = torch.tensor([7, 0, 1, 2, 3, 4, 5, 6])
+    count = torch.tensor([3, -0x8000 | 4, 5, 6, -0x8000 | 1, 2, 9, 9],
+                         dtype=torch.int16)
+    # the sorted rows read count[perm] = 9 3 | c4 | 5 6 c1 (c: control)
+    _s, _k, _n, sums = codec.run_encode(keys, perm, count)
+    assert sums.tolist() == [[0, 12], [4, 0], [1, 11]]
     empty = torch.empty(0, dtype=torch.int64)
-    flags, n_valid = codec.run_flags(empty)
-    assert flags.numel() == 0 and n_valid.tolist() == [0]
+    starts, run_keys, n_valid, lengths = codec.run_encode(empty, lengths=True)
+    assert starts.numel() == run_keys.numel() == lengths.numel() == 0
+    assert n_valid.tolist() == [0]
+
+
+@pytest.mark.parametrize("form", ["dedup", "count", "merge16", "merge32"])
+def test_run_encode_forms_match_numpy(form):
+    """run_encode's plain twin in every form against numpy's unique on
+    sorted keys with long runs and a sentinel tail."""
+    rng = np.random.default_rng(len(form))
+    n = 20_000
+    raw = rng.integers(0, 3000, n)
+    raw[:4000] = 17  # one run far longer than any tile
+    raw[-300:] = codec.SENTINEL
+    order = np.argsort(raw, kind="stable")
+    keys = raw[order]
+    valid = keys != codec.SENTINEL
+    want_keys, want_starts, want_len = np.unique(keys[valid], return_index=True,
+                                                 return_counts=True)
+    perm = count = None
+    if form.startswith("merge"):
+        dt = np.int16 if form == "merge16" else np.int32
+        flag = 0x8000 if dt == np.int16 else 0x80000000
+        value = rng.integers(0, 1 << 15 if dt == np.int16 else 1 << 20, n)
+        ctrl = rng.random(n) < 0.5
+        count = np.where(ctrl, value | flag, value).astype(dt)
+        perm = order
+    starts, run_keys, n_valid, third = codec.run_encode(
+        torch.from_numpy(keys), None if perm is None else torch.from_numpy(perm),
+        None if count is None else torch.from_numpy(count), lengths=form == "count")
+    np.testing.assert_array_equal(starts.numpy(), want_starts)
+    np.testing.assert_array_equal(run_keys.numpy(), want_keys)
+    assert n_valid.tolist() == [int(valid.sum())]
+    if form == "dedup":
+        assert third is None
+    elif form == "count":
+        np.testing.assert_array_equal(third.numpy(), want_len)
+    else:
+        rows = np.repeat(np.arange(len(want_keys)), want_len)
+        c, v = ctrl[perm][: len(rows)], value[perm][: len(rows)]
+        want = np.stack([np.bincount(rows, np.where(c, v, 0), len(want_keys)),
+                         np.bincount(rows, np.where(c, 0, v), len(want_keys))], 1)
+        np.testing.assert_array_equal(third.numpy(), want.astype(np.int64))
 
 
 @pytest.mark.parametrize("density", [0.0, 0.001, 0.3, 1.0])

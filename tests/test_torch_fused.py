@@ -208,13 +208,13 @@ def test_run_p32_counts(tmp_path, monkeypatch):
     fof = tmp_path / "fof.txt"
     fof.write_text("\n".join(lines) + "\n")
     packings = []
-    real = fused.assemble_chunk
+    real = fused.ChunkTable.assemble
 
-    def spy(keys_list, counts_list, starts, lens, nb_controls, pack16):
+    def spy(table, c, pack16, with_sample=False):
         packings.append(pack16)
-        return real(keys_list, counts_list, starts, lens, nb_controls, pack16)
+        return real(table, c, pack16, with_sample)
 
-    monkeypatch.setattr(fused, "assemble_chunk", spy)
+    monkeypatch.setattr(fused.ChunkTable, "assemble", spy)
     _no_fallback(monkeypatch)
 
     def opts(root):

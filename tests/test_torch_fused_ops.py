@@ -143,8 +143,8 @@ def test_assemble_chunk_plain_matches_jax(mode):
     want_words = jcodec.lanes_to_words(tuple(np.asarray(l)[sel] for l in lanes))
     want_counts = np.asarray(cat)[sel]
 
-    keys, count = fused.assemble_chunk(keys_list, counts_list, starts, lens, 2,
-                                       pack16=mode == "p16")
+    keys, count = fused.ChunkTable(keys_list, counts_list, starts, lens, 2).assemble(
+        0, pack16=mode == "p16")
     assert count.dtype == (torch.int16 if mode == "p16" else torch.int32)
     np.testing.assert_array_equal(codec.keys_to_words(keys.numpy()), want_words)
     np.testing.assert_array_equal(

@@ -142,27 +142,141 @@ def test_canonical_kmers_misaligned_views(dev, k):
             _ext_check(view, k)
 
 
+def _check_runs(keys, perm=None, count=None, lengths=False, starts=True):
+    """run_encode in one form against its plain twin on the same tensors,
+    in one launch."""
+    before = kernels.launch_counts()["run_bounds"]
+    got = codec.run_encode(keys, perm, count, lengths, starts)
+    assert kernels.launch_counts()["run_bounds"] == before + (1 if keys.numel() else 0)
+    want = codec.run_encode_plain(keys, perm, count, lengths, starts)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            _eq(g, w)
+    return got
+
+
+def _run_forms(keys, rng):
+    """Every form of run_encode on sorted keys: dedup, count, and merge
+    with int16 and int32 packed counts read through a permutation; the
+    count and merge forms with and without their starts."""
+    _check_runs(keys)
+    n = keys.numel()
+    perm = torch.from_numpy(rng.permutation(n)).to(keys.device)
+    for starts in (True, False):
+        _check_runs(keys, lengths=True, starts=starts)
+        for dtype in (torch.int16, torch.int32):
+            count = torch.from_numpy(rng.integers(-30000, 30000, n)).to(keys.device, dtype)
+            _check_runs(keys, perm, count, starts=starts)
+
+
+def _sorted(raw, dev):
+    return torch.sort(torch.from_numpy(np.asarray(raw, np.int64)).to(dev)).values
+
+
 @pytest.mark.parametrize("n", [1, 4096, 4097, 100_003])
 def test_runs_and_compaction(dev, n):
     rng = np.random.default_rng(n)
     raw = rng.integers(0, max(2, n // 3), n).astype(np.int64)
     raw[rng.random(n) < 0.05] = codec.SENTINEL
-    keys = torch.sort(torch.from_numpy(raw).to(dev)).values
-    flags, n_valid = codec.run_flags(keys)
-    flags_p, n_valid_p = codec.run_flags_plain(keys)
-    _eq(flags, flags_p)
-    _eq(n_valid, n_valid_p)
-    starts, run_keys = codec.compact(flags, keys)
-    starts_p, run_keys_p = codec.compact_plain(flags, keys)
-    _eq(starts, starts_p)
-    _eq(run_keys, run_keys_p)
-    _eq(codec.run_lengths(starts, n_valid),
-        codec.run_lengths_plain(starts, n_valid))
-    perm = torch.randperm(n, device=dev)
+    keys = _sorted(raw, dev)
+    _run_forms(keys, rng)
+    flags, _ = codec.run_flags_plain(keys)
+    _check_compact(flags, keys)
+    _check_compact(flags, None)
+
+
+@pytest.mark.parametrize("form", [1, 2])
+def test_run_encode_tile_edges(dev, form):
+    """At the tile of the count and dedup forms (form 1) and of the merge
+    forms (form 2): runs of 1 to a tile + 3 rows from row 0, so that runs
+    cross, end on and start on tile edges, at N around one and three
+    tiles; a sentinel tail that starts one row before, exactly at and one
+    row after a tile edge."""
+    tile = kernels.lib().kmd_run_encode_tile_rows(form)
+    rng = np.random.default_rng(11)
+    for n in (tile - 1, tile, tile + 1, 3 * tile + 5):
+        for run_len in (1, 2, 7, 33, tile + 3):
+            _run_forms(_sorted(np.arange(n) // run_len, dev), rng)
+        for at in (tile - 1, tile, tile + 1):
+            if at < n:
+                raw = np.sort(rng.integers(0, n // 3, n))
+                raw[at:] = codec.SENTINEL
+                starts, _k, n_valid, _l = _check_runs(_sorted(raw, dev), lengths=True)
+                assert int(n_valid) == at and int(starts[-1]) < at
+
+
+def test_run_encode_long_run_and_degenerate_inputs(dev):
+    """One run of 10^5 rows across many tiles (the count form's search for
+    its end, the merge form's tail), all sentinel, N = 1, one key."""
+    rng = np.random.default_rng(12)
+    raw = rng.integers(0, 1000, 300_000)
+    raw[1000:101_000] = 500
+    keys = _sorted(raw, dev)
+    _run_forms(keys, rng)
+    assert int(codec.run_encode(keys, lengths=True)[3].max()) >= 100_000
+    for raw in ([codec.SENTINEL] * 5000, [codec.SENTINEL], [42], [3] * 9000,
+                [-(2**63), 2**63 - 2, codec.SENTINEL]):
+        _run_forms(_sorted(raw, dev), rng)
+    starts, run_keys, n_valid, _ = codec.run_encode(_sorted([codec.SENTINEL] * 5000, dev))
+    assert starts.numel() == run_keys.numel() == 0 and int(n_valid) == 0
+
+
+def test_run_encode_misaligned_views(dev):
+    """Keys that are a view at an 8-byte offset of their allocation."""
+    tile = kernels.lib().kmd_run_encode_tile_rows(1)
+    rng = np.random.default_rng(13)
+    raw = np.sort(rng.integers(0, tile, 3 * tile + 100))
+    raw[-50:] = codec.SENTINEL
+    base = _sorted(raw, dev)
+    for lead in (1, 3):
+        view = base[lead:]
+        assert view.data_ptr() % 16 == 8
+        _run_forms(view, rng)
+
+
+def test_run_encode_merge_runs_across_tile_edges(dev):
+    """The merge form at its callers' shape: 20 sorted distinct streams, one
+    row a stream in a run, so runs of 1 to 20 rows, many across tile
+    edges."""
+    tile = kernels.lib().kmd_run_encode_tile_rows(2)
+    rng = np.random.default_rng(14)
+    pool = np.unique(rng.integers(-(2**62), 2**62, 12_000))
+    common = pool[:2000]
+    parts = [np.union1d(common, rng.choice(pool, 4000, replace=False)) for _ in range(20)]
+    keys, perm = torch.sort(torch.from_numpy(np.concatenate(parts)).to(dev))
+    starts, _k, _n, lengths = _check_runs(keys, lengths=True)
+    assert int(lengths.max()) == 20
+    ends = starts + lengths.long() - 1
+    assert bool(((starts // tile) != (ends // tile)).any())
     for dtype in (torch.int16, torch.int32):
-        count = torch.from_numpy(rng.integers(-30000, 30000, n)).to(dev, dtype)
-        _eq(codec.run_group_sums(starts, n_valid, perm, count),
-            codec.run_group_sums_plain(starts, n_valid, perm, count))
+        count = torch.from_numpy(rng.integers(-30000, 30000, keys.numel())).to(dev, dtype)
+        _check_runs(keys, perm, count)
+
+
+def test_run_encode_from_four_threads(dev):
+    """Back-to-back calls from four host threads, as the count pipeline's
+    sample threads make them, each freeing its outputs before the next, so
+    the caching allocator hands back memory with earlier status words."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(15)
+    cases = []
+    for i in range(12):
+        n = 100_000 + 4099 * i
+        raw = np.sort(rng.integers(0, n // (1 + i % 4), n))
+        raw[n - 37 * i :] = codec.SENTINEL
+        cases.append(_sorted(raw, dev))
+
+    def encode(keys):
+        return [t.cpu() for t in codec.run_encode(keys, lengths=True)]
+
+    with ThreadPoolExecutor(4) as pool:
+        results = list(pool.map(encode, cases))
+    for keys, got in zip(cases, results):
+        for g, w in zip(got, codec.run_encode_plain(keys, lengths=True)):
+            _eq(g, w)
 
 
 def test_compact_empty_and_full(dev):
@@ -302,6 +416,12 @@ def test_wrappers_refuse_cpu_only_layouts(dev):
     with pytest.raises(ValueError):
         codec.compact(torch.ones(4, dtype=torch.bool, device=dev),
                       torch.zeros(4, dtype=torch.int64))
+    keys = torch.arange(4, device=dev)
+    with pytest.raises(ValueError):
+        codec.run_encode(keys, torch.arange(4), torch.zeros(4, dtype=torch.int16))
+    with pytest.raises(TypeError):
+        codec.run_encode(keys, torch.arange(4, device=dev),
+                         torch.zeros(4, dtype=torch.int64, device=dev))
 
 
 def _streams(rng, S, dev, top):
@@ -327,14 +447,83 @@ def test_assemble_chunk(dev, S, pack16):
     if S > 2:
         starts[-1], lens[-1] = 0, Us[-1]  # one whole stream
     before = kernels.launch_counts()["assemble_chunk"]
-    got = fused.assemble_chunk(keys, counts, starts, lens, max(1, S // 2), pack16)
+    got = fused.ChunkTable(keys, counts, starts, lens, max(1, S // 2)).assemble(0, pack16)
     want = fused.assemble_chunk_plain(keys, counts, starts, lens, max(1, S // 2), pack16)
     launched = kernels.launch_counts()["assemble_chunk"] - before
     assert launched == (1 if lens.sum() else 0)
     _eq(got[0], want[0])
     _eq(got[1], want[1])
-    empty = fused.assemble_chunk(keys, counts, starts, np.zeros(S, np.int64), 0, pack16)
+    empty = fused.ChunkTable(keys, counts, starts, np.zeros(S, np.int64), 0).assemble(0, pack16)
     assert empty[0].numel() == 0 and empty[1].numel() == 0
+
+
+ASM_MODES = ((True, False), (False, False), (False, True))  # (pack16, sample ids)
+
+
+def _check_assemble(keys, counts, starts, lens, nbc):
+    """A one-chunk ChunkTable in p16, p32 and p32 with sample ids against
+    the plain twin, one launch each (none for an empty chunk)."""
+    table = fused.ChunkTable(keys, counts, starts, lens, nbc)
+    for pack16, ids in ASM_MODES:
+        before = kernels.launch_counts()["assemble_chunk"]
+        got = table.assemble(0, pack16, ids)
+        assert kernels.launch_counts()["assemble_chunk"] == before + (1 if sum(lens) else 0)
+        want = fused.assemble_chunk_plain(keys, counts, starts, lens, nbc, pack16, ids)
+        for g, w in zip(got, want):
+            _eq(g, w)
+
+
+def test_assemble_chunk_alignments_and_lengths(dev):
+    """Eight streams whose slices start at rows 0-7 (every 16-byte alignment
+    of a key), of lengths 0, 1, a tile - 1, a tile, a tile + 1, 5, two tiles
+    and 3, rotated so that each alignment meets each length."""
+    tile = kernels.lib().kmd_assemble_chunk_tile_rows()
+    rng = np.random.default_rng(21)
+    S, U = 8, 3 * tile
+    keys = [torch.from_numpy(np.sort(rng.integers(-(2**62), 2**62, U))).to(dev)
+            for _ in range(S)]
+    counts = [torch.from_numpy(rng.integers(0, 2**15, U).astype(np.int32)).to(dev)
+              for _ in range(S)]
+    lengths = np.array([0, 1, tile - 1, tile, tile + 1, 5, 2 * tile, 3])
+    for shift in range(8):
+        starts = (np.arange(S) + shift) % 8
+        _check_assemble(keys, counts, starts, np.roll(lengths, shift), 3)
+
+
+@pytest.mark.parametrize("S", [1, 300])
+def test_assemble_chunk_stream_counts(dev, S):
+    rng = np.random.default_rng(S + 22)
+    keys, counts = _streams(rng, S, dev, 2**15)
+    Us = np.array([k.numel() for k in keys])
+    starts = (rng.random(S) * Us // 2).astype(np.int64)
+    lens = (rng.random(S) * (Us - starts)).astype(np.int64)
+    lens[::7] = 0
+    lens[0] = max(lens[0], min(1, Us[0] - starts[0]))
+    _check_assemble(keys, counts, starts, lens, S // 2)
+
+
+def test_assemble_chunk_table_reused_back_to_back(dev):
+    """One ChunkTable for a plan of six key-range chunks over 20 streams,
+    assembled back to back with no sync between, as fused_merge does; every
+    chunk against the plain twin."""
+    rng = np.random.default_rng(23)
+    S, C = 20, 6
+    keys, counts = _streams(rng, S, dev, 2**15)
+    Us = np.array([k.numel() for k in keys])
+    cuts = np.sort(rng.random((C - 1, S)) * Us, axis=0).astype(np.int64)
+    edges = np.concatenate([np.zeros((1, S), np.int64), cuts, Us[None, :]])
+    starts, lens = edges[:-1], np.diff(edges, axis=0)
+    lens[2, :] = 0  # an empty chunk
+    for pack16, ids in ASM_MODES:
+        table = fused.ChunkTable(keys, counts, starts, lens, S // 2)
+        before = kernels.launch_counts()["assemble_chunk"]
+        got = [table.assemble(c, pack16, ids) for c in range(C)]
+        assert kernels.launch_counts()["assemble_chunk"] == before + C - 1
+        for c, g in enumerate(got):
+            want = fused.assemble_chunk_plain(keys, counts, starts[c], lens[c],
+                                              S // 2, pack16, ids)
+            for a, b in zip(g, want):
+                _eq(a, b)
 
 
 @pytest.mark.parametrize("hard_min", [1, 2, 5])
@@ -349,9 +538,7 @@ def test_weighted_runs_and_dedup_sum(dev, hard_min):
     kd = torch.from_numpy(keys).to(dev)
     wd = torch.from_numpy(w.view(np.int32)).to(dev)
     keys_s, perm = torch.sort(kd)
-    flags, n_valid = codec.run_flags(keys_s)
-    starts, _ = codec.compact(flags)
-    lens = codec.run_lengths(starts, n_valid)
+    starts, _k, n_valid, lens = codec.run_encode(keys_s, lengths=True)
     assert int(lens.min()) == 1 and int(lens.max()) == 7
     _eq(codec.weighted_run_sums(starts, n_valid, perm, wd),
         codec.weighted_run_sums_plain(starts, n_valid, perm, wd))
@@ -404,8 +591,8 @@ def test_assemble_chunk_sample_ids(dev, S):
     starts = (rng.random(S) * Us // 3).astype(np.int64)
     lens = Us - starts
     lens[S // 2] = 0
-    got = fused.assemble_chunk(keys, counts, starts, lens, max(1, S // 2), False,
-                               with_sample=True)
+    got = fused.ChunkTable(keys, counts, starts, lens, max(1, S // 2)).assemble(
+        0, False, with_sample=True)
     want = fused.assemble_chunk_plain(keys, counts, starts, lens, max(1, S // 2),
                                       False, with_sample=True)
     assert len(got) == 3 and got[2].dtype == torch.int16
@@ -439,8 +626,7 @@ def test_run_rows(dev, S):
     count = torch.from_numpy(rng.integers(-(2**31), 2**31, keys.numel())
                              .astype(np.int32)).to(dev)
     keys_s, perm = torch.sort(keys)
-    flags, n_valid = codec.run_flags(keys_s)
-    starts, _ = codec.compact(flags)
+    starts, _k, n_valid, _ = codec.run_encode(keys_s)
     U = starts.numel()
     for sel in (torch.zeros(0, dtype=torch.int64, device=dev),
                 torch.arange(U, device=dev),

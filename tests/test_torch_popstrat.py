@@ -295,6 +295,83 @@ def test_run_popstrat_matches_diff_and_jax_geno(stratified_cohort, tmp_path,
                 sorted(os.listdir(mats)))
 
 
+@pytest.fixture(scope="module")
+def unequal_cohort(tmp_path_factory):
+    """The stratified cohort of tests/test_popstrat.py (the same generator
+    and seed), but sample i draws 40 + 5 ((5 i) mod 12) reads: the
+    per-sample totals differ, so the totals column is no constant, the
+    designs are not singular and the IRLS fits iterate. The read counts
+    are interleaved between controls and cases, since totals that grew
+    with i would separate the labels and leave no null fit with a
+    maximum."""
+    from kmdiff_tpu.cmd.count import main_count
+    from kmdiff_tpu.cmd.options import CountOptions
+
+    out = tmp_path_factory.mktemp("unequal")
+    rng = np.random.default_rng(5)
+    bases = np.array(list("ACGT"))
+    shared = ["".join(rng.choice(bases, 60)) for _ in range(30)]
+    pop_a = ["".join(rng.choice(bases, 60)) for _ in range(20)]
+    pop_b = ["".join(rng.choice(bases, 60)) for _ in range(20)]
+    nc = nk = 6
+    fof_lines = []
+    for i in range(nc + nk):
+        is_case = i >= nc
+        private = pop_b if ((i % 3 != 0) if is_case else (i % 3 == 0)) else pop_a
+        sid = f"{'CASE' if is_case else 'CONTROL'}{i}"
+        fa = out / f"{sid}.fasta"
+        with open(fa, "w") as f:
+            for j in range(40 + 5 * (5 * i % 12)):
+                src = private if rng.random() < 0.5 else shared
+                f.write(f">r{j}\n{src[rng.integers(0, len(src))]}\n")
+        fof_lines.append(f"{sid} : {fa}")
+    (out / "fof.txt").write_text("\n".join(fof_lines) + "\n")
+    run_dir = out / "run"
+    main_count(CountOptions(fof=str(out / "fof.txt"), directory=str(run_dir),
+                            kmer_size=21, hard_min=1, nb_partitions=4,
+                            nb_threads=2))
+    return str(out), str(run_dir), nc, nk
+
+
+@pytest.mark.parametrize("command", ["diff", "run"])
+def test_unequal_totals_popstrat_matches_jax(unequal_cohort, tmp_path,
+                                             monkeypatch, command):
+    """Live IRLS fits: the port's popstrat `diff` (IRLS null fit) and
+    `run --pop-correction` against the JAX package's, under the 1% rule,
+    with at least one alt fit taking more than one iteration."""
+    root, _run_dir, nc, nk = unequal_cohort
+    alt_iters = []
+    real_irls = tpop.irls
+
+    def spy(X, last, *a, **kw):
+        out = real_irls(X, last, *a, **kw)
+        if last is not None:
+            alt_iters.append(int(out[2].max()))
+        return out
+
+    monkeypatch.setattr(tpop, "irls", spy)
+    if command == "diff":
+        ours, ref = _both(unequal_cohort, tmp_path)
+    else:
+        def boom(*_a, **_k):
+            raise AssertionError("the fused path fell back to the standard flow")
+
+        monkeypatch.setattr(jrun, "_standard_flow", boom)
+        monkeypatch.setattr(trun, "_standard_flow", boom)
+        flags = ["run", "--file", os.path.join(root, "fof.txt"), "-k", "21",
+                 "--nb-partitions", "4", "-1", str(nc), "-2", str(nk), "-s",
+                 str(THRESHOLD), "--cutoff", "1", "-c", "disabled",
+                 "--pop-correction", "--kmer-pca", "0.05", "--threads", "2"]
+        ours, ref = tmp_path / "t", tmp_path / "j"
+        assert torch_main([*flags, "-d", str(tmp_path / "tk"), "-o", str(ours)],
+                          device="cpu") == 0
+        assert jax_main([*flags, "-d", str(tmp_path / "jk"), "-o", str(ref),
+                         "--devices", "1"]) == 0
+    _same_bytes(ours / "popstrat", ref / "popstrat", ARTIFACTS[:-1])
+    _close_fasta(ours, ref)
+    assert alt_iters and max(alt_iters) > 1
+
+
 
 def test_matrix_path_rows_geno_and_save_sk_match_jax(tmp_path):
     """A prebuilt count matrix through the port's and the JAX package's
