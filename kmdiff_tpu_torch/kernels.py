@@ -9,7 +9,8 @@ The kernels live in ``csrc/*.cu`` beside this file:
   assemble_chunk   K-ASM   merge chunk from resident  (pipeline.fused)
                            stream slices
   weighted_runs    K-WRUN  per-run u32 weight sums    (ops.codec)
-  abundance_hist   K-HIST  abundance histogram        (ops.codec)
+  abundance_hist   K-HIST  count statistics and       (ops.codec)
+                           abundance histogram
   run_rows         K-ROWS  per-sample rows of runs    (ops.merge_dev)
   geno_sample      K-GENO  hashed k-mer sample        (ops.merge_dev)
   int_gram         K-GRAM  exact 0/1 Gram             (ops.pca)
@@ -26,8 +27,9 @@ is rebuilt and a stale library is never loaded.
 Each call of a kernel's C entry point (``launch``) adds one to that
 kernel's launch count (``launch_counts``); a caller resets the counts,
 drives a path and reads them to show the path went through the kernels. A
-C entry point returns ``cudaGetLastError()`` after its launches (K-CMP's
-and K-RUN's, which return a count, after waiting for their kernel) and
+C entry point returns ``cudaGetLastError()`` after its launches (K-CMP's,
+K-RUN's and K-HIST's, which return results in page-locked host memory,
+after waiting for their kernel) and
 ``launch`` raises on anything but 0.
 """
 
@@ -79,7 +81,8 @@ _SIGNATURES = {
     "kmd_assemble_chunk_tile_rows": (_ll, []),
     "kmd_assemble_chunk": (_i, [_vp, _vp, _vp, _i, _i, _ll, _i, _vp, _vp, _vp, _vp]),
     "kmd_weighted_run_sums": (_i, [_vp, _ll, _vp, _vp, _vp, _vp, _vp]),
-    "kmd_abundance_hist": (_i, [_vp, _ll, _vp, _vp]),
+    "kmd_count_stats_scratch_words": (_ll, []),
+    "kmd_count_stats": (_i, [_vp, _ll, _i, _i, _vp, _vp, _vp, _vp]),
     "kmd_run_rows": (_i, [_vp, _ll, _vp, _vp, _ll, _vp, _vp, _vp, _i, _i, _vp, _vp]),
     "kmd_geno_sample": (_i, [_vp, _ll, _u, _u, _vp, _vp]),
     "kmd_int_gram": (_i, [_vp, _ll, _i, _vp, _vp, _vp]),

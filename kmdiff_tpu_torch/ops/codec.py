@@ -22,7 +22,9 @@ the twin for a CPU tensor and the CUDA kernel for a CUDA tensor):
   K-WRUN weighted_run_sums
                           run starts + permuted u32 weights -> per-run
                           int64 sums
-  K-HIST abundance_hist   u32 counts -> [257] abundance cardinalities
+  K-HIST rle_stats        n_valid and u32 or int64 counts -> n_valid, the
+                          largest count and [257] abundance cardinalities,
+                          in one launch and one host sync
 
 ``sort_rle`` and ``fused_count`` chain them into the counting program
 (sort_rle_core / fused_count_kernel in the JAX package), ``dedup_sum`` into
@@ -347,52 +349,66 @@ def weighted_run_sums(starts: torch.Tensor, n_valid: torch.Tensor,
 
 # -- K-HIST --------------------------------------------------------------------
 
-def abundance_hist_plain(counts: torch.Tensor) -> torch.Tensor:
-    return torch.bincount(_u32(counts).clamp_max(HIST_BINS - 1),
-                          minlength=HIST_BINS)
-
-
-def abundance_hist(counts: torch.Tensor) -> torch.Tensor:
-    """K-HIST: counts [N] int32 holding u32 -> [257] int64, bin b in 1..255
-    the number of counts equal to b, bin 256 the number above 255 (the
-    JAX package's uvec[1:]; bin 0 counts zeros)."""
-    if counts.device.type == "cpu":
-        return abundance_hist_plain(counts)
-    kernels.require_cuda_tensor("abundance_hist counts", counts, torch.int32)
-    N = counts.numel()
-    if not N:
-        return torch.zeros(HIST_BINS, dtype=torch.int64, device=counts.device)
-    bins = torch.empty(HIST_BINS, dtype=torch.int64, device=counts.device)
-    with torch.cuda.device(counts.device):
-        kernels.launch("abundance_hist", "kmd_abundance_hist",
-                       counts.data_ptr(), N, bins.data_ptr())
-    return bins
-
-
-# -- counting ------------------------------------------------------------------
-
 @dataclasses.dataclass
 class RleStats:
     """What sort_rle_core's stats read carries besides n_distinct."""
 
     n_valid: int      # non-sentinel input rows (counted windows for sort_rle)
     max_count: int    # largest count (0 when there is none)
-    hist: np.ndarray | None  # [257] int64 abundance_hist, with_hist only
+    hist: np.ndarray | None  # [257] int64 abundance bins, with_hist only
 
 
-def _stats(n_valid: torch.Tensor, counts: torch.Tensor,
-           with_hist: bool) -> RleStats:
-    """n_valid, the max of counts (int64, or int32 holding u32) and the
-    histogram in one device-to-host copy."""
+def rle_stats_plain(n_valid: torch.Tensor, counts: torch.Tensor,
+                    with_hist: bool) -> RleStats:
     c64 = counts if counts.dtype == torch.int64 else _u32(counts)
-    mx = (c64.max() if c64.numel()
-          else torch.zeros((), dtype=torch.int64, device=c64.device))
-    parts = [n_valid, mx.reshape(1)]
+    hist = None
     if with_hist:
-        parts.append(abundance_hist(counts.to(torch.int32)))
-    host = torch.cat(parts).cpu().numpy()
+        top = HIST_BINS - 1
+        bins = torch.where((c64 >= 0) & (c64 < top), c64, top)
+        hist = torch.bincount(bins, minlength=HIST_BINS).cpu().numpy()
+    return RleStats(int(n_valid), int(c64.max()) if c64.numel() else 0, hist)
+
+
+def _stats_slots(dev: torch.device):
+    """This thread's K-HIST accumulators on `dev` (zero between calls: each
+    call's last block clears them) and its page-locked result row."""
+    slots = getattr(_thread, "stats", None)
+    if slots is None:
+        slots = _thread.stats = {}
+    slot = slots.get(dev.index)
+    if slot is None:
+        words = kernels.lib().kmd_count_stats_scratch_words()
+        out = torch.empty(2 + HIST_BINS, dtype=torch.int64, pin_memory=True)
+        slot = slots[dev.index] = (
+            torch.zeros(words, dtype=torch.int64, device=dev), out, out.numpy())
+    return slot
+
+
+def rle_stats(n_valid: torch.Tensor, counts: torch.Tensor,
+              with_hist: bool) -> RleStats:
+    """K-HIST: n_valid [1] int64 (K-RUN's) and counts [U], int32 holding
+    u32 (sort_rle's run lengths) or int64 (dedup_sum's sums) -> RleStats:
+    n_valid, the largest count, and with_hist the [257] int64 histogram,
+    bin b in 1..255 the number of counts equal to b, bin 256 the number
+    above 255 (the JAX package's uvec[1:]; bin 0 counts zeros). One launch
+    and one host sync, whatever U (0 included)."""
+    if counts.device.type == "cpu":
+        return rle_stats_plain(n_valid, counts, with_hist)
+    if counts.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"rle_stats: counts must be int32 or int64, got {counts.dtype}")
+    kernels.require_cuda_tensor("rle_stats counts", counts, counts.dtype)
+    kernels.require_cuda_tensor("rle_stats n_valid", n_valid, torch.int64)
+    scratch, out, host = _stats_slots(counts.device)
+    with torch.cuda.device(counts.device):
+        kernels.launch("abundance_hist", "kmd_count_stats", counts.data_ptr(),
+                       counts.numel(), int(counts.dtype == torch.int64),
+                       int(with_hist), n_valid.data_ptr(), scratch.data_ptr(),
+                       out.data_ptr())
     return RleStats(int(host[0]), int(host[1]),
                     host[2:].copy() if with_hist else None)
+
+
+# -- counting ------------------------------------------------------------------
 
 
 def sort_rle(keys: torch.Tensor, with_hist: bool = False):
@@ -405,7 +421,7 @@ def sort_rle(keys: torch.Tensor, with_hist: bool = False):
                                               lengths=True, starts=False)
     if not with_hist:
         return run_keys, counts
-    return run_keys, counts, _stats(n_valid, counts, True)
+    return run_keys, counts, rle_stats(n_valid, counts, True)
 
 
 def keep_at_least(keys: torch.Tensor, counts: torch.Tensor, hard_min: int):
@@ -425,7 +441,8 @@ def dedup_sum(keys: torch.Tensor, weights: torch.Tensor, hard_min: int = 1,
     stats (max, histogram) describe the kept runs.
 
     torch.sort with its permutation, run starts (K-RUN), the per-run sums
-    read through the permutation (K-WRUN), exact in int64. Each sum
+    read through the permutation (K-WRUN), exact in int64, and their stats
+    (K-HIST on the int64 sums). Each sum
     must fit the u32 of the count files (as the JAX package's wrapped-u32
     sums assume); OverflowError otherwise."""
     keys_s, perm = torch.sort(keys)
@@ -433,7 +450,7 @@ def dedup_sum(keys: torch.Tensor, weights: torch.Tensor, hard_min: int = 1,
     sums = weighted_run_sums(starts, n_valid, perm, weights)
     if hard_min > 1:
         run_keys, sums = keep_at_least(run_keys, sums, hard_min)
-    stats = _stats(n_valid, sums, with_hist)
+    stats = rle_stats(n_valid, sums, with_hist)
     if stats.max_count > _U32:
         raise OverflowError(f"a k-mer's summed count {stats.max_count} "
                             "exceeds the u32 of the count files")

@@ -96,12 +96,13 @@ def lrt_filter_block(counts: torch.Tensor, nb_controls: int, ratio_c, ratio_k,
 
 def run_filter(params: LrtParams, counts, device: torch.device):
     """Filter one [B, S] block on `device` through K-LRT (its plain twin on
-    the CPU); returns numpy (keep, lr, s_c, s_k)."""
+    the CPU); returns numpy (keep, s_c, s_k): no lr, which no caller
+    reads."""
     from kmdiff_tpu_torch.ops.lrt_kernel import lrt_filter
 
     c = torch.as_tensor(np.ascontiguousarray(counts).view(np.int32)
                         if counts.dtype == np.uint32 else counts)
     c = c.to(device=device, dtype=torch.int32).contiguous()
-    out = lrt_filter(c, params.nb_controls, params.ratio_c, params.ratio_k,
-                     params.lr_min)
-    return tuple(t.cpu().numpy() for t in out)
+    keep, _lr, s_c, s_k = lrt_filter(c, params.nb_controls, params.ratio_c,
+                                     params.ratio_k, params.lr_min, want_lr=False)
+    return keep.cpu().numpy(), s_c.cpu().numpy(), s_k.cpu().numpy()

@@ -13,6 +13,7 @@ count fits 15 bits) or in the sign bit (int32). On the device:
                                  branch)
   K-LRT lrt_filter (S=2, nb_controls=1)
                                  f32 LR + margin keep on the [U, 2] sums
+                                 (keep alone: the sums are K-RUN's)
   K-CMP compact                  survivors' keys and sums
 
 The full branch (popstrat, --save-sk) ships each row's sample id too, with
@@ -45,7 +46,8 @@ def _merge_runs(keys, count, ratio_c, ratio_k, lr_min, starts: bool):
     keys_s, perm = torch.sort(keys)
     starts, run_keys, n_valid, sums = run_encode(keys_s, perm, count,
                                                  starts=starts)
-    keep, _lr, _s_c, _s_k = lrt_filter(sums, 1, ratio_c, ratio_k, lr_min)
+    keep, _lr, _s_c, _s_k = lrt_filter(sums, 1, ratio_c, ratio_k, lr_min,
+                                       want_lr=False, want_sums=False)
     hit, hit_keys = compact(keep, run_keys)
     return perm, n_valid, starts, run_keys, sums, hit, hit_keys
 

@@ -119,7 +119,7 @@ class PartitionProcessor:
         s_k = np.zeros(len(counts), dtype=np.int64)
         for lo in range(0, len(counts), BLOCK_ROWS):
             hi = min(len(counts), lo + BLOCK_ROWS)
-            k, _lr, sc, sk = run_filter(self.params, counts[lo:hi], self.device)
+            k, sc, sk = run_filter(self.params, counts[lo:hi], self.device)
             keep[lo:hi], s_c[lo:hi], s_k[lo:hi] = k, sc, sk
         idx = np.nonzero(keep)[0]
         p, sg, mc, mk = self.model.process_sums(s_c[idx], s_k[idx])

@@ -7,7 +7,11 @@ byte offsets 1..15; K-CMP also at five densities from
 none to all rows, at more tiles than the card holds resident, on
 misaligned views, on reused memory and from four host threads; K-ASM with
 1, 2 and 20 streams, empty slices and both packings; K-WRUN with runs of 1
-to 7 rows and hard-min; K-HIST empty, ragged and all above 255; K-ASM's
+to 7 rows and hard-min; K-HIST (rle_stats) on u32 and int64 counts, empty,
+ragged around its block step, on views at every element offset of a 16-byte
+line, all ones, all above 255, u32 at and above 2^31, from four host
+threads, one launch and one device operation a call; K-LRT in each of its
+output forms for B = 0 to 4099 and S = 1 to 300, on offset views; K-ASM's
 sample ids; K-GENO at four rates over keys with the top bit set and clear;
 K-ROWS with empty selections, runs at the end of the valid rows and sample
 ids past S; the full merge on the card against the CPU; K-GRAM at 0, 1 and
@@ -551,18 +555,178 @@ def test_weighted_runs_and_dedup_sum(dev, hard_min):
     np.testing.assert_array_equal(got[2].hist, want[2].hist)
 
 
-@pytest.mark.parametrize("n", [0, 1, 255, 257, 100_003, 1_000_001])
-def test_abundance_hist(dev, n):
-    rng = np.random.default_rng(n)
-    counts = rng.integers(1, 5, n).astype(np.uint32)
-    counts[::7] = rng.integers(200, 2**32, len(counts[::7]), dtype=np.uint64)
-    c = torch.from_numpy(counts.view(np.int32)).to(dev)
-    _eq(codec.abundance_hist(c), codec.abundance_hist_plain(c))
-    above = torch.from_numpy(
-        rng.integers(256, 2**32, n, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(dev)
-    h = codec.abundance_hist(above)
-    _eq(h, codec.abundance_hist_plain(above))
-    assert int(h[256]) == n and int(h[:256].sum()) == 0
+#: K-HIST's unrolled block step: 512 threads x four 16-byte loads
+HIST_STEP = {torch.int32: 8192, torch.int64: 4096}
+
+
+def _stats_input(rng, n, dtype, dev):
+    """n counts, mostly 1-3, every 7th from 200 to 2^32 - 1, as int32
+    holding u32 or as int64."""
+    c = rng.geometric(0.6, n).astype(np.int64)
+    c[::7] = rng.integers(200, 2**32, len(c[::7]))
+    t = torch.from_numpy(c.astype(np.uint32).view(np.int32) if dtype == torch.int32 else c)
+    return t.to(dev)
+
+
+def _check_stats(n_valid, counts, with_hist=True):
+    """rle_stats against rle_stats_plain, in one launch."""
+    before = kernels.launch_counts()["abundance_hist"]
+    got = codec.rle_stats(n_valid, counts, with_hist)
+    assert kernels.launch_counts()["abundance_hist"] == before + 1
+    want = codec.rle_stats_plain(n_valid, counts, with_hist)
+    assert (got.n_valid, got.max_count) == (want.n_valid, want.max_count)
+    if with_hist:
+        np.testing.assert_array_equal(got.hist, want.hist)
+    else:
+        assert got.hist is None
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_abundance_hist(dev, dtype):
+    """rle_stats at N = 0, 1, 3, 4, 5, a block step - 1, + 0, + 1, more
+    steps than the grid has blocks, with and without the histogram."""
+    rng = np.random.default_rng(HIST_STEP[dtype])
+    n_valid = torch.tensor([12345], dtype=torch.int64, device=dev)
+    step = HIST_STEP[dtype]
+    for n in (0, 1, 3, 4, 5, step - 1, step, step + 1, 300 * step + 7, 3_000_001):
+        counts = _stats_input(rng, n, dtype, dev)
+        for with_hist in (True, False):
+            assert _check_stats(n_valid, counts, with_hist).n_valid == 12345
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_count_stats_offset_views(dev, dtype):
+    """Counts that are views at every element offset of a 16-byte line
+    (int32 offsets 0-3, int64 0-1), as K-RUN's buffer hands them out: a
+    scalar head, then 16-byte loads."""
+    rng = np.random.default_rng(31)
+    step = HIST_STEP[dtype]
+    base = _stats_input(rng, 3 * step + 50, dtype, dev)
+    n_valid = torch.tensor([9], dtype=torch.int64, device=dev)
+    size = base.element_size()
+    for lead in range(16 // size):
+        for n in (1, 3, 5, 2 * step + 3, base.numel() - lead):
+            view = base[lead : lead + n]
+            assert view.data_ptr() % 16 == lead * size
+            _check_stats(n_valid, view)
+
+
+def test_count_stats_extremes(dev):
+    """All ones; all above 255; u32 counts at and above 2^31, whose max is
+    the u32 value; int64 sums up to 2^32 - 1."""
+    rng = np.random.default_rng(32)
+    n = 100_003
+    n_valid = torch.tensor([n], dtype=torch.int64, device=dev)
+    for dtype in (torch.int32, torch.int64):
+        st = _check_stats(n_valid, torch.ones(n, dtype=dtype, device=dev))
+        assert st.max_count == 1 and st.hist[1] == n
+    above = rng.integers(256, 2**32, n).astype(np.uint32)
+    st = _check_stats(n_valid, torch.from_numpy(above.view(np.int32)).to(dev))
+    assert st.hist[256] == n and st.hist[:256].sum() == 0
+    assert st.max_count == int(above.max())
+    big = np.full(n, 2**31, np.uint32)
+    big[77] = 2**32 - 1
+    assert _check_stats(n_valid, torch.from_numpy(big.view(np.int32)).to(dev)).max_count == 2**32 - 1
+    wide = rng.integers(0, 2**32, n, dtype=np.int64)
+    wide[5] = 2**32 - 1
+    assert _check_stats(n_valid, torch.from_numpy(wide).to(dev)).max_count == 2**32 - 1
+
+
+def test_count_stats_from_four_threads(dev):
+    """Four host threads at once, as the count pipeline's sample threads
+    call sort_rle: each thread keeps its own accumulators."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(33)
+    cases = []
+    for i in range(16):
+        dtype = (torch.int32, torch.int64)[i % 2]
+        n = (0, 5, 70_001, 1_000_003)[i % 4]
+        cases.append((torch.tensor([i], dtype=torch.int64, device=dev),
+                      _stats_input(rng, n, dtype, dev)))
+    with ThreadPoolExecutor(4) as pool:
+        results = list(pool.map(lambda c: codec.rle_stats(*c, True), cases))
+    for (n_valid, counts), got in zip(cases, results):
+        want = codec.rle_stats_plain(n_valid, counts, True)
+        assert (got.n_valid, got.max_count) == (want.n_valid, want.max_count)
+        np.testing.assert_array_equal(got.hist, want.hist)
+
+
+def test_count_stats_one_launch_one_device_op(dev):
+    """A call launches K-HIST once, makes no PyTorch-side sync (its one host
+    sync is inside the C entry point) and runs one device operation: no
+    memset, no copy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = _stats_input(np.random.default_rng(34), 1 << 20, torch.int32, dev)
+    n_valid = torch.tensor([1 << 20], dtype=torch.int64, device=dev)
+    codec.rle_stats(n_valid, counts, True)
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()["abundance_hist"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            codec.rle_stats(n_valid, counts, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.launch_counts()["abundance_hist"] == before + 5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            codec.rle_stats(n_valid, counts, True)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(ops) == 5 and all("count_stats" in name for name in ops), ops
+
+
+LRT_FORMS = ((True, True), (False, False), (False, True), (True, False))  # (lr, sums)
+
+
+def _check_lrt(counts, nbc):
+    """Every form of lrt_filter against the plain twin's full form, one
+    launch a call (none for B = 0), None for each output not asked for."""
+    args = (nbc, 0.45, 0.55, 5.0)
+    ref = lrt_filter_plain(counts, *args)
+    for want_lr, want_sums in LRT_FORMS:
+        before = kernels.launch_counts()["lrt_filter"]
+        keep, lr, s_c, s_k = lrt_filter(counts, *args, want_lr=want_lr, want_sums=want_sums)
+        assert kernels.launch_counts()["lrt_filter"] == before + (1 if counts.shape[0] else 0)
+        _eq(keep, ref[0])
+        if want_lr:
+            torch.testing.assert_close(lr, ref[1], rtol=1e-6, atol=1e-6)
+        else:
+            assert lr is None
+        if want_sums:
+            _eq(s_c, ref[2])
+            _eq(s_k, ref[3])
+        else:
+            assert s_c is None and s_k is None
+
+
+@pytest.mark.parametrize("B", [0, 1, 3, 4, 5, 4099])
+def test_lrt_filter_narrow_forms(dev, B):
+    """The merge's [B, 2] sums, fresh and as views at an 8-byte offset (the
+    pairs form's lead row) and at a 4-byte one (no 8-byte pairs)."""
+    rng = np.random.default_rng(B + 70)
+    flat = torch.from_numpy(rng.integers(0, 500, 2 * B + 4, dtype=np.int32)).to(dev)
+    for lead in (0, 2, 1):
+        view = flat[lead : lead + 2 * B].view(B, 2)
+        assert B == 0 or view.data_ptr() % 16 == 4 * lead
+        _check_lrt(view, 1)
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 7, 20, 64, 65, 300])
+def test_lrt_filter_columns(dev, S):
+    """S from 1 to 300 (a thread a row: every S but the pairs form's 2), nb_controls
+    0, S // 2 and S, on fresh counts and on views at an 8-byte offset."""
+    rng = np.random.default_rng(S + 80)
+    B = 1000 + S
+    flat = torch.from_numpy(rng.integers(0, 500, B * S + 2, dtype=np.int32)).to(dev)
+    for lead in (0, 2):
+        view = flat[lead : lead + B * S].view(B, S)
+        for nbc in sorted({0, S // 2, S}):
+            _check_lrt(view, nbc)
 
 
 @pytest.mark.parametrize("sort_rows,hard_min", [(1 << 24, 1), (5000, 2)])

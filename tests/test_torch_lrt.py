@@ -100,16 +100,19 @@ def test_lrt_params_bit_equal():
 
 
 def test_run_filter_any_rows_and_uint32():
-    """run_filter takes any B (no tile padding) and uint32 count views."""
+    """run_filter takes any B (no tile padding) and uint32 count views, and
+    returns keep and the sums (no lr, which its caller does not read)."""
     rng = np.random.default_rng(1)
     counts = _counts(rng, 1000, 6).astype(np.uint32)
     params = LrtParams(2, 4, 1000, 3000, 0.01)
-    keep, lr, s_c, s_k = run_filter(params, counts, torch.device("cpu"))
-    assert keep.shape == lr.shape == s_c.shape == s_k.shape == (1000,)
+    keep, s_c, s_k = run_filter(params, counts, torch.device("cpu"))
+    assert keep.shape == s_c.shape == s_k.shape == (1000,)
     np.testing.assert_array_equal(s_c, counts[:, :2].sum(1))
     ref = jax_lrt_filter_block(
         jnp.asarray(counts.view(np.int32)), 2, jnp.float32(params.ratio_c),
         jnp.float32(params.ratio_k), jnp.float32(params.lr_min))
+    lr = lrt_filter(torch.from_numpy(counts.view(np.int32)), 2, params.ratio_c,
+                    params.ratio_k, params.lr_min)[1]
     assert_filter_close((keep, lr, s_c, s_k), ref, params.lr_min)
 
 
