@@ -39,9 +39,13 @@ Run from the root of a checkout, with no arguments:
    int64, with one launch and one device operation a call and its device
    time from torch.profiler; K-GENO on 2^23 run keys at rates 0.001 and
    0.05, K-ROWS for ~13,700 survivors and ~12,000 sampled starts of 2^23
-   sorted rows from 20 streams, K-GRAM on [2^20, 20] and [2^18, 200] 0/1
-   blocks, K-IRLS on 2^14 conditioned alt designs at n = 20, F = 5 and
-   n = 200, F = 12 (one singular item, one separable). Integers, masks and
+   sorted rows from 20 streams, each with its device time (20 queued
+   launches) and its one device operation a call (torch.profiler), K-GRAM
+   on [2^20, 20] and [2^18, 200] 0/1 blocks, K-IRLS on 2^14 conditioned alt
+   designs at n = 20, F = 5 and n = 200, F = 12 (one singular item, one
+   separable) and on their first 1,024 (popstrat's launch size), alone
+   bit-identical to the same fits among 2^14, each with its device time
+   (20 queued launches). Integers, masks and
    statistics must be equal; lr within rtol 1e-6 and atol 1e-6;
    K-IRLS with an f64 refit as witness: iteration counts equal on 97% of
    the items, and on the fits the witness finds at a maximum the stop
@@ -98,7 +102,10 @@ carries the merge form as merge_ms, merge_plain_ms, merge_device_ms,
 merge_bound_ms, merge_bound_by and merge_library_ms; compact's row is its
 payload form ("form") and carries the index form as index_ms,
 index_plain_ms, index_bound_ms, index_bound_by and index_library_ms
-(torch.nonzero); the last line of standard output is the result:
+(torch.nonzero); run_rows' and irls' rows carry device_ms (run_rows' also
+device_ops) and their other shapes' rows under "shapes" (run_rows: the
+sampled presence rows; irls: n = 20 at 1,024 items, n = 200 at 2^14 and
+1,024); the last line of standard output is the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -551,13 +558,15 @@ def compare_geno(dev, rng):
     return res[0.001]
 
 
-def compare_rows(dev, rng):
-    """K-ROWS at the popstrat merge's shape: 2^23 sorted rows from 20
-    streams, ~13,700 survivor runs and ~12,000 sampled ones."""
+def rows_inputs(dev, rng):
+    """K-ROWS's phase-2 inputs, the popstrat merge's shape: 2^23 sorted rows
+    from 20 streams, ~13,700 survivor runs (count rows) and ~12,000 sampled
+    ones (presence rows). -> {label: run_rows arguments}, the rows in the
+    selected runs of each, the merge's sorted row and run counts."""
     import numpy as np
     import torch
 
-    from kmdiff_tpu_torch.ops import codec, merge_dev
+    from kmdiff_tpu_torch.ops import codec
 
     S = N_CONTROLS + N_CASES
     keys, counts = _random_streams(dev, S, (1 << 23) // S, 13, 1 << 12)
@@ -568,27 +577,50 @@ def compare_rows(dev, rng):
     keys_s, perm = torch.sort(torch.cat(keys))
     starts, _keys, n_valid, lengths = codec.run_encode(keys_s, lengths=True)
     U = starts.numel()
-    res = {}
+    calls, rows_in = {}, {}
     for label, n_sel, presence in (("survivors", 13_700, False),
                                    ("sampled", 12_000, True)):
         sel = torch.from_numpy(np.sort(rng.choice(U, n_sel, replace=False))).to(dev)
-        args = (starts, n_valid, sel, perm, count, sample, S, presence)
+        calls[label] = (starts, n_valid, sel, perm, count, sample, S, presence)
+        rows_in[label] = int(lengths[sel].sum())
+    return calls, rows_in, keys_s.numel(), U
+
+
+def compare_rows(dev, rng):
+    """K-ROWS at the popstrat merge's shape (rows_inputs): each form
+    against its twin, its whole call, its device time (CUDA events over 20
+    launches queued behind a sleep kernel) and its device operations a
+    call (torch.profiler: one, no memset). Returns the survivors' row with
+    the sampled form's in shapes["sampled"]."""
+    from kmdiff_tpu_torch.ops import merge_dev
+
+    calls, rows_in, n_rows, U = rows_inputs(dev, rng)
+    res = {}
+    for label, args in calls.items():
+        n_sel, S, presence = args[2].numel(), args[6], args[7]
         check_equal(f"run_rows {label}", merge_dev.run_rows(*args),
                     merge_dev.run_rows_plain(*args))
-        ms = median_ms(lambda: merge_dev.run_rows(*args))
+        call = lambda: merge_dev.run_rows(*args)  # noqa: E731
+        ms = median_ms(call)
         plain = median_ms(lambda: merge_dev.run_rows_plain(*args))
+        dev_ms, n_ops = events_ms(call), device_work(call)[1]
+        if n_ops != 1:
+            raise AssertionError(f"run_rows {label}: {n_ops} device operations a call, not 1")
         # the selection, each run's two bounds, and per row of the selected
         # runs its permutation entry, count and sample id in; [H, S] out
-        rows_in = int(lengths[sel].sum())
         res[label] = row(ms, plain, 0.0,
-                         24 * n_sel + 14 * rows_in + n_sel * S * (1 if presence else 4),
-                         rows_in)
-        print(f"[K-ROWS] run_rows {n_sel} {label} of {U} runs of "
-              f"{keys_s.numel()} rows ({rows_in} in the selected runs), "
-              f"S={S}{' (presence)' if presence else ''}: kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms; {share(res[label])}; library: none (no "
-              f"one call)")
-    return res["survivors"]
+                         24 * n_sel + 14 * rows_in[label] + n_sel * S * (1 if presence else 4),
+                         rows_in[label], device_ms=dev_ms, device_ops=n_ops)
+        print(f"[K-ROWS] run_rows {n_sel} {label} of {U} runs of {n_rows} rows "
+              f"({rows_in[label]} in the selected runs), S={S}"
+              f"{' (presence)' if presence else ''}: kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f} ms over 20 queued launches, {n_ops} device operation a "
+              f"call), plain {plain:.4f} ms; {share(res[label])}, "
+              f"{res[label]['bound_ms'] / dev_ms:.1%} of it over the device time; "
+              f"library: none (no one call)")
+    out = res["survivors"]
+    out["shapes"] = {"sampled": res["sampled"]}
+    return out
 
 
 def compare_gram(dev, rng):
@@ -623,14 +655,20 @@ def compare_irls(dev, rng):
     max-abs-scaled count-ratio column; item 0 constant (singular), item 1
     separating the labels. Judged with an f64 refit as witness (irls_seeds
     judge): fits at a maximum agree with the twin; separated or diverged
-    fits, chaotic in any precision, are counted."""
+    fits, chaotic in any precision, are counted. Then the block's first
+    1,024 fits, popstrat's launch size (a spill block's k-mers), launched
+    alone: bit-identical to the same fits in the 2^14 launch (irls_seeds
+    bit_faults). Whole calls and device time (CUDA events over 20 launches
+    queued behind a sleep kernel) at both counts. Returns the n = 20, 2^14
+    row with the other shapes' rows in shapes."""
     import torch
 
     from kmdiff_tpu_torch.ops import glm
-    from kmdiff_tpu_torch.tools.irls_seeds import (irls_inputs, judge, well_posed,
-                                                   witness)
+    from kmdiff_tpu_torch.tools.irls_seeds import (bit_faults, irls_inputs, judge,
+                                                   well_posed, witness)
 
     B = 1 << 14
+    small = 1024
     res = {}
     for n, F in ((20, 5), (200, 12)):
         args = irls_inputs(rng, n, F, B, dev)
@@ -648,28 +686,45 @@ def compare_irls(dev, rng):
         compared = well & same_it
         ill_apart = int((~well & ~torch.isclose(ll, ll_p, rtol=1e-5, atol=1e-4)).sum())
         err = float((ll - ll_p)[compared].abs().max())
-        ms = median_ms(lambda: glm.irls(*args), reps=7, warmup=1)
-        plain = median_ms(lambda: glm.irls_plain(*args), reps=5, warmup=1)
-        # f32 flops over the measured iterations: per iteration the
-        # Hessian's F(F+1)/2 distinct entries (nF(F+1); the kernel mirrors
-        # the rest), the right-hand side and the new linear predictor
-        # (4nF), the weights and error (~20n) and the solve (2F^3/3 +
-        # 2F^2); then the log-likelihood (2nF + 20n). Bytes: the shared
-        # design, the ratio columns and the labels in; w, err, iters, ll and
-        # stop out.
-        per_it = n * F * (F + 1) + 4 * n * F + 20 * n + 2 * F ** 3 / 3 + 2 * F * F
-        flops = float(it.sum()) * per_it + B * (2 * n * F + 20 * n)
-        res[n] = row(ms, plain, err, 4 * n * F + 4 * B * n + 4 * n + B * (4 * F + 13),
-                     flops, "f32")
-        print(f"[K-IRLS] irls {B} items n={n} F={F}: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms; iters {int(it.min())}-{int(it.max())} (equal on "
-              f"{float(same_it.float().mean()):.4%}), stops "
+        sargs = (args[0], args[1][:small].contiguous(), args[2])
+        sgot = glm.irls(*sargs)
+        faults = bit_faults(sgot, tuple(t[:small] for t in got))
+        if faults:
+            raise AssertionError(f"irls n={n}: {small} fits alone differ from the same "
+                                 "fits among 2^14: " + "; ".join(faults))
+        for items, a, its in ((B, args, it), (small, sargs, sgot[2])):
+            call = lambda a=a: glm.irls(*a)  # noqa: E731
+            ms = median_ms(call, reps=7, warmup=1)
+            dev_ms = events_ms(call)
+            plain = median_ms(lambda a=a: glm.irls_plain(*a), reps=5, warmup=1)
+            # f32 flops over the measured iterations: per iteration the
+            # Hessian's F(F+1)/2 distinct entries (nF(F+1); the kernel
+            # mirrors the rest), the right-hand side and the new linear
+            # predictor (4nF), the weights and error (~20n) and the solve
+            # (2F^3/3 + 2F^2); then the log-likelihood (2nF + 20n). Bytes:
+            # the shared design, the ratio columns and the labels in; w,
+            # err, iters, ll and stop out.
+            per_it = n * F * (F + 1) + 4 * n * F + 20 * n + 2 * F ** 3 / 3 + 2 * F * F
+            flops = float(its.sum()) * per_it + items * (2 * n * F + 20 * n)
+            r = res[n, items] = row(ms, plain, err,
+                                    4 * n * F + 4 * items * n + 4 * n + items * (4 * F + 13),
+                                    flops, "f32", device_ms=dev_ms)
+            print(f"[K-IRLS] irls {items} items n={n} F={F}: kernel {ms:.4f} ms "
+                  f"(device {dev_ms:.4f} ms over 20 queued launches), plain "
+                  f"{plain:.4f} ms; iters {int(its.min())}-{int(its.max())}; "
+                  f"{share(r)}, {r['bound_ms'] / dev_ms:.1%} of it over the device "
+                  f"time; library: none (no one call)")
+        print(f"[K-IRLS] irls {B} items n={n} F={F}: iters equal to the twin's on "
+              f"{float(same_it.float().mean()):.4%}, stops "
               f"{torch.bincount(stop.long(), minlength=3).tolist()}; {int(well.sum())} "
               f"fits at a maximum in f64, max|dll| {err:.3g} over those at equal "
               f"iteration counts; {int((~well).sum())} separated or diverged, "
-              f"{ill_apart} of them beyond rtol 1e-5 / atol 1e-4; {share(res[n])}; "
-              f"library: none (no one call)")
-    return res[20]
+              f"{ill_apart} of them beyond rtol 1e-5 / atol 1e-4; the first {small} "
+              f"alone bit-identical to the same fits among {B}")
+    out = res[20, B]
+    out["shapes"] = {f"n={n},B={items}": r for (n, items), r in res.items()
+                     if (n, items) != (20, B)}
+    return out
 
 
 def _random_streams(dev, S, U, seed, top):

@@ -87,9 +87,9 @@ _SIGNATURES = {
     "kmd_geno_sample": (_i, [_vp, _ll, _u, _u, _vp, _vp]),
     "kmd_int_gram": (_i, [_vp, _ll, _i, _vp, _vp, _vp]),
     "kmd_irls_max_features": (_i, []),
-    "kmd_irls_smem_bytes": (_ll, [_i, _i]),
-    "kmd_irls": (_i, [_vp, _ll, _vp, _vp, _ll, _i, _i, _i, _f, _f, _vp, _vp, _vp,
-                      _vp, _vp, _vp]),
+    "kmd_irls_layout": (_ll, [_i, _i, _i, _i, _ll, _vp, _vp]),
+    "kmd_irls": (_i, [_vp, _ll, _vp, _vp, _ll, _i, _i, _i, _f, _f, _ll, _vp, _vp,
+                      _vp, _vp, _vp, _vp]),
     "kmd_error_string": (ctypes.c_char_p, [_i]),
 }
 

@@ -1,9 +1,9 @@
 """Batched logistic regression by IRLS (port of kmdiff_tpu/ops/glm.py).
 
 Popstrat fits one null model and one alt model per significant k-mer; the
-alt designs share every column but the last. K-IRLS fits one item per
-thread block and returns each fit's Bernoulli log-likelihood from the same
-launch:
+alt designs share every column but the last. K-IRLS fits one item a
+warp, several a block (irls_layout), and returns each fit's Bernoulli
+log-likelihood from the same launch:
 
   K-IRLS irls   X [Bx, n, F] f32 (Bx = 1 shared, or B), last [B, n] or
                 None, y [n] -> w [B, F], err [B], iters [B] int32, ll [B],
@@ -18,6 +18,8 @@ f32, never TF32: reduced-precision passes moved popstrat's survivor counts
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -103,6 +105,20 @@ def irls_plain(X, last, y, max_iters: int = 500, eps_conv: float = _EPS_CONV):
     return w, err, iters, ll, stop
 
 
+def irls_layout(n: int, F: int, shared_design: bool, has_last: bool,
+                smem_limit: int) -> tuple[int, bool, int]:
+    """K-IRLS's launch layout for n samples and F features within
+    smem_limit bytes of shared memory a block: (fits a block, whether the
+    designs are staged in shared memory, the block's shared bytes); fits is
+    0 where not even one fit a block fits. shared_design: one design X[0]
+    for every item."""
+    fits, staged = ctypes.c_int(), ctypes.c_int()
+    nbytes = kernels.lib().kmd_irls_layout(n, F, int(shared_design), int(has_last),
+                                           smem_limit, ctypes.byref(fits),
+                                           ctypes.byref(staged))
+    return fits.value, bool(staged.value), nbytes
+
+
 def irls(X: torch.Tensor, last: torch.Tensor | None, y: torch.Tensor,
          max_iters: int = 500, eps_conv: float = _EPS_CONV):
     """K-IRLS: logistic IRLS of B items, item b's design X[b] (or X[0]
@@ -126,12 +142,11 @@ def irls(X: torch.Tensor, last: torch.Tensor | None, y: torch.Tensor,
     if Bx not in (1, B) or y.shape != (n,):
         raise ValueError(f"irls: X {tuple(X.shape)}, y {tuple(y.shape)} and "
                          f"{B} items do not agree")
-    lib = kernels.lib()
-    if F > lib.kmd_irls_max_features():
-        raise ValueError(f"irls: {F} features, at most "
-                         f"{lib.kmd_irls_max_features()}")
-    props = torch.cuda.get_device_properties(X.device)
-    if lib.kmd_irls_smem_bytes(n, F) > props.shared_memory_per_block_optin:
+    max_f = kernels.lib().kmd_irls_max_features()
+    if F > max_f:
+        raise ValueError(f"irls: {F} features, at most {max_f}")
+    limit = torch.cuda.get_device_properties(X.device).shared_memory_per_block_optin
+    if irls_layout(n, F, Bx == 1, last is not None, limit)[0] == 0:
         raise ValueError(f"irls: {n} samples x {F} features exceed the "
                          "block's shared memory")
     dev = X.device
@@ -145,7 +160,7 @@ def irls(X: torch.Tensor, last: torch.Tensor | None, y: torch.Tensor,
             kernels.launch("irls", "kmd_irls", X.data_ptr(),
                            0 if Bx == 1 else n * F, kernels.ptr(last),
                            y.data_ptr(), B, n, F, max_iters, _G_FLOOR,
-                           eps_conv, w.data_ptr(), err.data_ptr(),
+                           eps_conv, limit, w.data_ptr(), err.data_ptr(),
                            iters.data_ptr(), ll.data_ptr(), stop.data_ptr())
     return w, err, iters, ll, stop
 

@@ -163,7 +163,9 @@ def run_rows(starts: torch.Tensor, n_valid: torch.Tensor, sel: torch.Tensor,
     per-sample row of its counts -> [H, S] int32 (count & 0x7FFFFFFF of
     the p32 packing), or with presence [H, S] uint8 (count > 0). Row r of
     the sorted order is count[perm[r]] of sample sample[perm[r]]; a run
-    ends at the next start or at n_valid. Sample ids >= S are ignored."""
+    ends at the next start or at n_valid. Sample ids >= S are ignored.
+    One launch a call, none for an empty selection; the kernel writes
+    every element, zeros included."""
     if starts.device.type == "cpu":
         return run_rows_plain(starts, n_valid, sel, perm, count, sample,
                               nb_samples, presence)
@@ -177,11 +179,12 @@ def run_rows(starts: torch.Tensor, n_valid: torch.Tensor, sel: torch.Tensor,
     rows = torch.empty((H, nb_samples),
                        dtype=torch.uint8 if presence else torch.int32,
                        device=starts.device)
-    with torch.cuda.device(starts.device):
-        kernels.launch("run_rows", "kmd_run_rows", starts.data_ptr(),
-                       starts.numel(), n_valid.data_ptr(), sel.data_ptr(), H,
-                       perm.data_ptr(), count.data_ptr(), sample.data_ptr(),
-                       nb_samples, int(presence), rows.data_ptr())
+    if H:
+        with torch.cuda.device(starts.device):
+            kernels.launch("run_rows", "kmd_run_rows", starts.data_ptr(),
+                           starts.numel(), n_valid.data_ptr(), sel.data_ptr(), H,
+                           perm.data_ptr(), count.data_ptr(), sample.data_ptr(),
+                           nb_samples, int(presence), rows.data_ptr())
     return rows
 
 

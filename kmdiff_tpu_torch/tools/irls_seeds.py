@@ -2,7 +2,7 @@
 
 Run on a CUDA card from the root of a checkout:
 
-    python3 -m kmdiff_tpu_torch.tools.irls_seeds [--seeds 64] [--tf32]
+    python3 -m kmdiff_tpu_torch.tools.irls_seeds [--seeds 64] [--tf32] [--parent REV]
 
 Each draw is chip_smoke.py phase 2's block of popstrat alt fits
 (irls_inputs), 2^14 items at n = 20, F = 5 and at n = 200, F = 12, from
@@ -20,17 +20,30 @@ K-IRLS whose products round their operands to TF32 (what the JAX package
 measured to move popstrat's results, kmdiff_tpu/ops/glm.py:26-30), built in
 a copy of the package under build/tools/: the check must fail it. --device
 cpu runs the plain twin on both sides, a check of the script alone.
+
+--parent REV holds this K-IRLS bit for bit against another version's: REV
+is a git revision of this repository (its kmdiff_tpu_torch taken with git
+archive) or a directory holding another checkout (for a machine without
+the repository's history, e.g. a git archive unpacked under a directory
+that .gitignore lists). That package is copied under
+build/tools/irls_parent/, where its kernels build, and run by this script
+in a subprocess over the same draws (its inputs' hashes must match);
+every item's w, err, iters, ll and stop must be equal in every bit
+(bit_faults). The exit code is 1 if any bit differs.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import os
 import shutil
 import subprocess
 import sys
+import tarfile
+import tempfile
 
 import numpy as np
 import torch
@@ -178,9 +191,110 @@ def sweep(seeds: int, dev, label: str) -> dict:
     return summary
 
 
+OUTPUTS = ("w", "err", "iters", "ll", "stop")
+
+
+def bit_faults(got, want) -> list[str]:
+    """What differs between two K-IRLS results (w, err, iters, ll, stop),
+    empty when every item's five outputs are equal in every bit: per
+    output, the items that differ (f32 compared as their bits, so a NaN
+    payload or the sign of a zero counts)."""
+    faults = []
+    for name, g, w in zip(OUTPUTS, got, want):
+        g, w = g.detach().cpu(), w.detach().cpu()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            faults.append(f"{name}: {tuple(g.shape)} {g.dtype} against "
+                          f"{tuple(w.shape)} {w.dtype}")
+            continue
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        apart = (g != w).reshape(g.shape[0], -1).any(1)
+        if bool(apart.any()):
+            faults.append(f"{name}: {int(apart.sum())} of {g.shape[0]} items differ "
+                          f"(first {int(torch.nonzero(apart)[0])})")
+    return faults
+
+
+def _input_hash(args) -> str:
+    h = hashlib.sha1()
+    for t in args:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _draws(seeds: int, dev):
+    """((n, F), seed, glm.irls arguments) for every draw of the sweep."""
+    for n, F in SHAPES:
+        for seed in range(seeds):
+            yield (n, F), seed, irls_inputs(np.random.default_rng(seed), n, F, ITEMS, dev)
+
+
+def dump(path: str, seeds: int, dev) -> None:
+    """K-IRLS's outputs and the inputs' hashes of every draw, saved to path,
+    from the kmdiff_tpu_torch this process imports."""
+    import kmdiff_tpu_torch
+    from kmdiff_tpu_torch.ops import glm
+
+    out = {"package": kmdiff_tpu_torch.__file__}
+    for shape, seed, args in _draws(seeds, dev):
+        out[shape, seed] = (_input_hash(args),
+                            tuple(t.cpu() for t in glm.irls(*args, 500)))
+    torch.save(out, path)
+
+
+def _parent_copy(rev: str) -> str:
+    """kmdiff_tpu_torch of rev (a git revision of this repository, or a
+    directory holding a checkout) copied under build/tools/irls_parent."""
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    root = os.path.join(repo, "build", "tools", "irls_parent")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    if os.path.isdir(rev):
+        shutil.copytree(os.path.join(rev, "kmdiff_tpu_torch"),
+                        os.path.join(root, "kmdiff_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__", "build"))
+        return root
+    with tempfile.TemporaryFile() as tar:
+        subprocess.run(["git", "archive", rev, "kmdiff_tpu_torch"], cwd=repo,
+                       stdout=tar, check=True)
+        tar.seek(0)
+        with tarfile.open(fileobj=tar) as t:
+            t.extractall(root, filter="data")
+    return root
+
+
+def parent_check(rev: str, seeds: int, dev) -> dict:
+    """Every draw's K-IRLS outputs against rev's, bit for bit."""
+    from kmdiff_tpu_torch.ops import glm
+
+    root = _parent_copy(rev)
+    path = os.path.join(root, "outputs.pt")
+    env = dict(os.environ, PYTHONPATH=root)
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--dump", path,
+                    "--seeds", str(seeds), "--device", str(dev)],
+                   cwd=root, env=env, check=True)
+    theirs = torch.load(path)
+    if not theirs.pop("package").startswith(root):
+        raise AssertionError("the parent run did not import its own package")
+    summary = {}
+    for (n, F), seed, args in _draws(seeds, dev):
+        digest, want = theirs[(n, F), seed]
+        if digest != _input_hash(args):
+            raise AssertionError(f"seed {seed} n={n} F={F}: the parent's inputs differ")
+        faults = bit_faults(glm.irls(*args, 500), want)
+        print(f"[parent {rev}] seed {seed} n={n} F={F}: "
+              f"{'; '.join(faults) or f'all {ITEMS} items bit-identical'}", flush=True)
+        s = summary.setdefault(f"n={n},F={F}", {"draws": 0, "items": 0, "faults": []})
+        s["draws"] += 1
+        s["items"] += ITEMS
+        s["faults"] += [f"seed {seed}: {f}" for f in faults]
+    return summary
+
+
 def _planted_copy() -> str:
     """A copy of the package whose K-IRLS rounds its products' operands to
-    TF32 (cvt.rna, as the tensor cores take f32 inputs)."""
+    TF32 (cvt.rna, as the tensor cores take f32 inputs): the Hessian's and
+    the right-hand side's products and the linear predictor's."""
     pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     root = os.path.join(os.path.dirname(pkg), "build", "tools", "irls_tf32")
     shutil.rmtree(root, ignore_errors=True)
@@ -193,9 +307,9 @@ def _planted_copy() -> str:
         ("namespace {\n", "namespace {\n\n__device__ __forceinline__ float tf32(float v) {\n"
          "  unsigned r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(r) : \"f\"(v));\n"
          "  return __uint_as_float(r);\n}\n"),
-        ("s.add((x(i, j) * gw[i]) * x(i, k));", "s.add(tf32(x(i, j) * gw[i]) * tf32(x(i, k)));"),
-        ("s.add(x(i, j) * gz[i]);", "s.add(tf32(x(i, j)) * tf32(gz[i]));"),
-        ("e += x(i, j) * w[j];", "e += tf32(x(i, j)) * tf32(w[j]);"),
+        ("h = (xj * g) * xk;", "h = tf32(xj * g) * tf32(xk);"),
+        ("r = xj * z;", "r = tf32(xj) * tf32(z);"),
+        ("e += d(i, j) * w[j];", "e += tf32(d(i, j)) * tf32(w[j]);"),
     ]
     for old, new in edits:
         if text.count(old) != 1:
@@ -211,14 +325,25 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, default=64)
     ap.add_argument("--tf32", action="store_true",
                     help="also run the draws through a TF32-planted K-IRLS")
+    ap.add_argument("--parent", metavar="REV",
+                    help="also hold every output bit for bit against REV's "
+                         "K-IRLS (a git revision or a checkout's directory)")
     ap.add_argument("--label", default="kernel")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dump", metavar="PATH", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     dev = torch.device(a.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         print("irls_seeds: no CUDA device", file=sys.stderr)
         return 1
+    if a.dump:
+        dump(a.dump, a.seeds, dev)
+        return 0
     result = {a.label: sweep(a.seeds, dev, a.label)}
+    rc = 0
+    if a.parent:
+        result["parent"] = parent_check(a.parent, a.seeds, dev)
+        rc = int(any(s["faults"] for s in result["parent"].values()))
     if a.tf32:
         root = _planted_copy()
         env = dict(os.environ, PYTHONPATH=root)
@@ -230,7 +355,7 @@ def main(argv=None) -> int:
         print("\n".join(lines[:-1]), flush=True)
         result.update(json.loads(lines[-1]))
     print(json.dumps(result))
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

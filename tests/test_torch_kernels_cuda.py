@@ -14,9 +14,12 @@ threads, one launch and one device operation a call; K-LRT in each of its
 output forms for B = 0 to 4099 and S = 1 to 300, on offset views; K-ASM's
 sample ids; K-GENO at four rates over keys with the top bit set and clear;
 K-ROWS with empty selections, runs at the end of the valid rows and sample
-ids past S; the full merge on the card against the CPU; K-GRAM at 0, 1 and
-ragged row counts and S from 1 to 200; K-IRLS with singular, separable and
-max-iteration items, F up to 64 and a design above 48 KB of shared memory.
+ids past S, and on memory the allocator hands back filled with 0xFF (no
+memset), at S = 20 and 200 and for an empty selection (no launch); the
+full merge on the card against the CPU; K-GRAM at 0, 1 and ragged row
+counts and S from 1 to 200; K-IRLS with singular, separable and
+max-iteration items, F up to 64 and a design above 48 KB of shared memory,
+and each item's outputs bit-identical alone and among 1,023 others.
 They need an NVIDIA GPU and nvcc, and skip without one; run them on the card
 with
 
@@ -886,3 +889,78 @@ def test_irls_max_iters_and_limits(dev):
     assert (got[4] == 2).any() and int(got[2].max()) == 3
     with pytest.raises(ValueError):
         glm.irls(torch.zeros((1, 4, 65), device=dev), None, y[:4])
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _bit_equal(got, want, rows):
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g[rows]).cpu(), _bits(w).cpu())
+
+
+# popstrat's n = 20, the stride-emulated sums past one and four warps of
+# rows (n = 33, 129), 64 features, 3000 samples (one fit a block) and 8000
+# (too many to stage: the design read from device memory)
+@pytest.mark.parametrize("n,F", [(20, 5), (33, 6), (129, 12), (150, 64), (3000, 8),
+                                 (8000, 5)])
+def test_irls_batch_independence(dev, n, F):
+    B = 1024
+    rng = np.random.default_rng(n + F)
+    X, last, y = _irls_inputs(rng, B, n, F, dev)
+    fits, staged, _ = glm.irls_layout(n, F, True, True,
+                                      torch.cuda.get_device_properties(dev)
+                                      .shared_memory_per_block_optin)
+    assert fits >= 1 and staged == (n < 8000)
+    # a max_iters that some fits reach and others converge under; then the
+    # first block holds the singular item, a fit that converges and one
+    # that stops at max_iters
+    it0, stop0 = glm.irls(X, last, y, 500)[2:5:2]
+    conv = torch.nonzero(stop0 == 0)[:, 0]
+    m = int(it0[conv].max())
+    fast = int(conv[it0[conv] < m][0])
+    slow = int(conv[it0[conv] >= m][0])
+    order = [0, fast, slow] + [b for b in range(1, B) if b not in (fast, slow)]
+    last = last[order].contiguous()
+    got = glm.irls(X, last, y, m)
+    stops = set(got[4][: max(fits, 3)].tolist())
+    assert {0, 1, 2} <= stops
+    picks = sorted({0, 1, 2, fits - 1, fits, fits + 1, B // 2, B - 1})
+    for b in picks:
+        _bit_equal(got, glm.irls(X, last[b: b + 1], y, m), slice(b, b + 1))
+    # a batch that ends inside a block
+    part = B - 5 if fits > 1 else B - 1
+    _bit_equal(got, glm.irls(X, last[:part], y, m), slice(0, part))
+
+
+@pytest.mark.parametrize("S,H", [(20, 700), (200, 300), (20, 0)])
+def test_run_rows_on_dirty_memory(dev, S, H):
+    rng = np.random.default_rng(S + H)
+    # a small key pool: runs of up to S rows, past one warp at S = 200
+    pool = np.unique(rng.integers(-(2**62), 2**62, 2000))
+    parts = [np.sort(rng.choice(pool, int(rng.integers(500, 1500)), replace=False))
+             for _ in range(S)]
+    keys = torch.from_numpy(np.concatenate(parts)).to(dev)
+    sample = torch.from_numpy(np.repeat(np.arange(S), [len(p) for p in parts])
+                              .astype(np.int16)).to(dev)
+    count = torch.from_numpy(rng.integers(-(2**31), 2**31, keys.numel())
+                             .astype(np.int32)).to(dev)
+    keys_s, perm = torch.sort(keys)
+    starts, _k, n_valid, lengths = codec.run_encode(keys_s, lengths=True)
+    if S > 32:
+        assert int(lengths.max()) > 32
+    sel = torch.from_numpy(np.sort(rng.choice(starts.numel(), H, replace=False))).to(dev)
+    for presence in (False, True):
+        args = (starts, n_valid, sel, perm, count, sample, S, presence)
+        want = merge_dev.run_rows_plain(*args)
+        junk = torch.full((want.numel() * want.element_size(),), 0xFF,
+                          dtype=torch.uint8, device=dev)
+        ptr = junk.data_ptr()
+        del junk
+        before = kernels.launch_counts()["run_rows"]
+        got = merge_dev.run_rows(*args)
+        assert kernels.launch_counts()["run_rows"] == before + (1 if H else 0)
+        if H:
+            assert got.data_ptr() == ptr  # the 0xFF block came back
+        _eq(got, want)
