@@ -18,7 +18,8 @@ Run from the root of a checkout, with no arguments:
    in its callers' forms and in the full form, each with its device time
    (CUDA events around 20 launches queued back to back): keep alone on the
    merge's [2^22, 2] sums (a view 8 bytes past a 16-byte boundary), keep
-   and the sums on a [2^17, 20] matrix tile; K-EXT
+   and the sums on a [2^17, 20] matrix tile, and keep alone on the wide
+   merge's [2^22, 2] int64 sums (every 16th row from 2^31 to 2^34); K-EXT
    at 2^24 codes for k = 31, 15, 21, 32 and at a bench sample's 8,444,524
    codes, each also as device time (CUDA events around 20 launches queued
    back to back); K-RUN (run_encode) in its count form on 2^23 sorted keys
@@ -26,12 +27,14 @@ Run from the root of a checkout, with no arguments:
    beside torch.unique_consecutive, its merge form on 2^23 rows with int16
    packed counts read through the sort's permutation, both without run
    starts as sort_rle and merge_lrt call them (and checked with them), and
-   its dedup form on the same keys, each form's device time from
-   torch.profiler (the call waits for its count); K-CMP at its dense shape (the run starts of
+   its dedup form on the same keys, and its full form (int64 sums of raw
+   u32 counts, every eighth from 2^31 to 2^32, with sample ids) on 2^23
+   rows from 20 streams, with and without starts, each form's device time
+   from torch.profiler (the call waits for its count); K-CMP at its dense shape (the run starts of
    K-RUN's input), with and without its payload, and its sparse one (LRT
    survivors), with its achieved bandwidth and its launches and host syncs
    a call; K-ASM on 20 streams into a ~2^24-row chunk in both packings and
-   with the full merge's sample ids, a chunk's whole call and its device
+   with the full merge's sample ids (raw counts), a chunk's whole call and its device
    time (20 queued launches), the per-merge table timed apart; K-WRUN
    on three overlapping 2^22-key streams with hard-min 2, K-HIST
    (rle_stats: n_valid, the max and the histogram) on 2^23 counts with a
@@ -39,7 +42,8 @@ Run from the root of a checkout, with no arguments:
    int64, with one launch and one device operation a call and its device
    time from torch.profiler; K-GENO on 2^23 run keys at rates 0.001 and
    0.05, K-ROWS for ~13,700 survivors and ~12,000 sampled starts of 2^23
-   sorted rows from 20 streams, each with its device time (20 queued
+   sorted rows from 20 streams (raw counts, every 16th from 2^31 to 2^32,
+   which the count rows must hold), each with its device time (20 queued
    launches) and its one device operation a call (torch.profiler), K-GRAM
    on [2^20, 20] and [2^18, 200] 0/1 blocks, K-IRLS on 2^14 conditioned alt
    designs at n = 20, F = 5 and n = 200, F = 12 (one singular item, one
@@ -81,6 +85,24 @@ Run from the root of a checkout, with no arguments:
    (b) `run` with the same flags on CUDA,
    served by the fused path with K-ASM: FASTA and pcs.evec byte-identical
    to (a)'s CUDA output, the .geno the same multiset of rows.
+6. The wide sums, on a cohort whose k-mer mass passes 2^31 (wide_cohort:
+   a run directory in count's layout made on the host from numpy, seed
+   WIDE_SEED: 10 controls + 10 cases, 4 partitions, ~2^22 k-mers a sample
+   from a pool of ~6 M, ~84 M merge rows, 2,000 case-enriched k-mers and 8
+   planted ones with counts from 1.5e9 to 3.1e9, so that raw counts pass
+   2^31 and group sums 2^32): (a) `diff -s 0.001 --cutoff 1 -c disabled`
+   on CUDA, which must launch K-RUN in its full form, K-LRT on int64 sums
+   and K-CMP (launch counts reset before, > 0 after; the merge's calls
+   counted by form, FormSpy) and never the packed merge, then on the CPU:
+   FASTA byte-identical, and record for record (p-value and means as
+   printed) the host f64 rescore of the input's exact numpy int64 group
+   sums; (b) the same with `--pop-correction --save-sk` on CUDA (K-ROWS and
+   K-GENO too) and on the CPU: artifacts and matrices byte-identical, the
+   planted k-mers that pass held in the matrices with their raw counts
+   exactly; (c) the fused `run` on phase 3's cohort with the loose cut and
+   LrtParams.wide_sums forced true in this process only, served by the
+   fused path with K-ASM and the full-form K-RUN, its FASTA byte-identical
+   to phase 3's loose `diff`.
 
 Then it prints every kernel's launches on each path, and fails if any
 module of JAX or of the JAX package (kmdiff_tpu) was loaded.
@@ -94,12 +116,17 @@ lrt_filter's and abundance_hist's rows also carry device_ms; lrt_filter's
 row is its merge form (keep alone), with profiler_ms (its kernel's time in
 torch.profiler), and carries its full form as full_ms, full_device_ms,
 full_profiler_ms, full_bound_ms and full_bound_by, and the matrix tile's
-forms as matrix_* (keep and the sums) and matrix_full_*; abundance_hist's
+forms as matrix_* (keep and the sums) and matrix_full_*, and the int64
+form (keep alone) as wide_ms, wide_plain_ms, wide_device_ms, wide_bound_ms
+and wide_bound_by, with wide_launches (its launches on phase 6's wide
+diff); abundance_hist's
 row is its int32 form and carries the int64 form as wide_ms,
 wide_plain_ms, wide_device_ms, wide_bound_ms and wide_bound_by;
 run_bounds' row is its count form ("form") and
 carries the merge form as merge_ms, merge_plain_ms, merge_device_ms,
-merge_bound_ms, merge_bound_by and merge_library_ms; compact's row is its
+merge_bound_ms, merge_bound_by and merge_library_ms, and the full form
+(int64 sums, without starts) as wide_ms, wide_plain_ms, wide_device_ms,
+wide_bound_ms, wide_bound_by and wide_launches; compact's row is its
 payload form ("form") and carries the index form as index_ms,
 index_plain_ms, index_bound_ms, index_bound_by and index_library_ms
 (torch.nonzero); run_rows' and irls' rows carry device_ms (run_rows' also
@@ -250,7 +277,7 @@ def compare_lrt(dev, rng):
     from kmdiff_tpu_torch.ops.lrt_kernel import lrt_filter, lrt_filter_plain
 
     params, merge, matrix = lrt_inputs(dev, rng)
-    res = {}
+    res = {"wide": compare_lrt_wide(dev, rng, params)}
     for label, counts, nbc, want_sums in (("merge", merge, 1, False),
                                           ("matrix", matrix, N_CONTROLS, True)):
         B, S = counts.shape
@@ -293,7 +320,41 @@ def compare_lrt(dev, rng):
                         ("matrix_full", "matrix_full")):
         out.update({f"{prefix}_{f}": res[key][f]
                     for f in ("ms", "device_ms", "profiler_ms", "bound_ms", "bound_by")})
+    out.update({f"wide_{f}": res["wide"][f]
+                for f in ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by")})
     return out
+
+
+def compare_lrt_wide(dev, rng, params):
+    """K-LRT's int64 form, keep alone, on the wide merge's [2^22, 2] group
+    sums (K-RUN's full form hands them out 16-byte aligned: the wide pairs
+    kernel), below 400 but every 16th row from 2^31 to 2^34: keep equal to
+    the twin's; whole call and device time (CUDA events over 20 queued
+    launches)."""
+    import numpy as np
+    import torch
+
+    from kmdiff_tpu_torch.ops.lrt_kernel import lrt_filter, lrt_filter_plain
+
+    sums = rng.integers(0, 400, size=(1 << 22, 2), dtype=np.int64)
+    sums[::16] = rng.integers(2**31, 2**34, size=(len(sums[::16]), 2))
+    sums = torch.from_numpy(sums).to(dev)
+    if sums.data_ptr() % 16:
+        raise AssertionError("the wide sums are not 16-byte aligned")
+    args = (1, params.ratio_c, params.ratio_k, params.lr_min)
+    call = lambda: lrt_filter(sums, *args, want_lr=False, want_sums=False)  # noqa: E731
+    keep = call()[0]
+    check_equal("lrt_filter wide keep", keep, lrt_filter_plain(sums, *args)[0])
+    B = sums.shape[0]
+    plain = median_ms(lambda: lrt_filter_plain(sums, *args))
+    # two int64 sums in, keep out; ~50 f32 operations a row
+    r = row(median_ms(call), plain, 0.0, 17 * B, 50 * B, "f32", device_ms=events_ms(call))
+    print(f"[K-LRT] lrt_filter [{B}, 2] int64 sums (wide pairs form, {int((sums >= 2**31).sum())} "
+          f"sums at or above 2^31), keep alone: kernel {r['ms']:.4f} ms (device "
+          f"{r['device_ms']:.4f} ms over 20 queued launches), plain {plain:.4f} ms, kept "
+          f"{int(keep.sum())}; {share(r)}, {r['bound_ms'] / r['device_ms']:.1%} of it over "
+          f"the device time; library: none (no one call)")
+    return r
 
 
 def compare_kernels(dev) -> dict:
@@ -310,6 +371,7 @@ def compare_kernels(dev) -> dict:
     out["canonical_kmers"] = compare_ext(dev, rng)
 
     out["run_bounds"], keys_s = compare_runs(dev, rng)
+    out["run_bounds"].update(compare_full_runs(dev, rng))
     n = keys_s.numel()
     # K-CMP's dense shape: the run starts of K-RUN's count-form input, with
     # their keys (the compaction the run starts once went through; K-CMP's
@@ -497,6 +559,66 @@ def compare_runs(dev, rng):
     return r, keys_s
 
 
+def full_run_inputs(dev, rng):
+    """K-RUN full form's phase-2 inputs, the wide merge's shape: 2^23 rows
+    from 20 streams of one key pool (runs of ~7 rows), sorted on the card
+    with the sort's permutation; raw u32 counts (int32) below 300 but every
+    eighth from 2^31 to 2^32, so that runs sum past 2^32; the rows' sample
+    ids. -> (keys_s, perm, count, sample)."""
+    import numpy as np
+    import torch
+
+    S = N_CONTROLS + N_CASES
+    keys, counts = _random_streams(dev, S, (1 << 23) // S, 17, 300)
+    count = torch.cat(counts)
+    big = rng.integers(2**31, 2**32, len(count[::8]), dtype=np.int64)
+    count[::8] = torch.from_numpy(big.astype(np.uint32).view(np.int32)).to(dev)
+    sample = torch.cat([torch.full((k.numel(),), s, dtype=torch.int16, device=dev)
+                        for s, k in enumerate(keys)])
+    keys_s, perm = torch.sort(torch.cat(keys))
+    return keys_s, perm, count, sample
+
+
+def compare_full_runs(dev, rng) -> dict:
+    """K-RUN's full form (codec.run_encode with sample ids: int64 sums of
+    raw counts, the wide merge's) at full_run_inputs, with and without
+    starts, held equal to run_encode_plain's; whole call and device time
+    (torch.profiler: the call waits for its count) of the form the wide
+    diff calls (no starts). Returns the row's wide_* fields."""
+    from kmdiff_tpu_torch.ops import codec
+
+    keys_s, perm, count, sample = full_run_inputs(dev, rng)
+    args = dict(sample=sample, nb_controls=N_CONTROLS)
+    for starts in (True, False):
+        got = codec.run_encode(keys_s, perm, count, starts=starts, **args)
+        want = codec.run_encode_plain(keys_s, perm, count, starts=starts, **args)
+        for name, g, w in zip(("starts", "run keys", "n_valid", "sums"), got, want):
+            if (g is None) != (w is None):
+                raise AssertionError(f"run_encode full form: {name} returned or not")
+            if w is not None:
+                check_equal(f"run_encode full form {name}", g, w)
+    sums = got[3]
+    if int(sums.max()) < 2**32:
+        raise AssertionError("the full-form input lost its sums past 2^32")
+    call = lambda: codec.run_encode(keys_s, perm, count, starts=False, **args)  # noqa: E731
+    ms, dev_ms = median_ms(call), device_work(call)[0]
+    plain = median_ms(lambda: codec.run_encode_plain(keys_s, perm, count, starts=False,
+                                                     **args))
+    n, U = keys_s.numel(), sums.shape[0]
+    # the keys and the permutation in, each row's raw count and sample id
+    # gathered; run keys, [U, 2] int64 sums and n_valid out; a compare and
+    # an add a row
+    r = row(ms, plain, 0.0, 22 * n + 24 * U + 8, 2 * n, device_ms=dev_ms)
+    print(f"[K-RUN] run_encode full form without starts, 2^23 rows from "
+          f"{N_CONTROLS + N_CASES} streams -> {U} runs (raw u32 counts, "
+          f"{int((sums >= 2**32).sum())} sums past 2^32): kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f} ms), plain {plain:.4f} ms; {share(r)}, "
+          f"{r['bound_ms'] / dev_ms:.1%} of it over the device time; library: none "
+          f"(no one call)")
+    return {f"wide_{key}": r[key] for key in
+            ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by")}
+
+
 def compare_ext(dev, rng):
     """K-EXT at 2^24 codes (INVALID every 151 bytes: 150 bp reads) for k =
     31, 15, 21, 32, and at one bench sample's codes at k = 31: whole calls
@@ -560,7 +682,8 @@ def compare_geno(dev, rng):
 
 def rows_inputs(dev, rng):
     """K-ROWS's phase-2 inputs, the popstrat merge's shape: 2^23 sorted rows
-    from 20 streams, ~13,700 survivor runs (count rows) and ~12,000 sampled
+    from 20 streams with raw u32 counts (the full merge's), every 16th from
+    2^31 to 2^32, ~13,700 survivor runs (count rows) and ~12,000 sampled
     ones (presence rows). -> {label: run_rows arguments}, the rows in the
     selected runs of each, the merge's sorted row and run counts."""
     import numpy as np
@@ -572,8 +695,9 @@ def rows_inputs(dev, rng):
     keys, counts = _random_streams(dev, S, (1 << 23) // S, 13, 1 << 12)
     sample = torch.cat([torch.full((k.numel(),), s, dtype=torch.int16, device=dev)
                         for s, k in enumerate(keys)])
-    count = torch.cat([c | (torch.iinfo(torch.int32).min if s < N_CONTROLS else 0)
-                       for s, c in enumerate(counts)])
+    count = torch.cat(counts)
+    big = rng.integers(2**31, 2**32, len(count[::16]), dtype=np.int64)
+    count[::16] = torch.from_numpy(big.astype(np.uint32).view(np.int32)).to(dev)
     keys_s, perm = torch.sort(torch.cat(keys))
     starts, _keys, n_valid, lengths = codec.run_encode(keys_s, lengths=True)
     U = starts.numel()
@@ -598,8 +722,10 @@ def compare_rows(dev, rng):
     res = {}
     for label, args in calls.items():
         n_sel, S, presence = args[2].numel(), args[6], args[7]
-        check_equal(f"run_rows {label}", merge_dev.run_rows(*args),
-                    merge_dev.run_rows_plain(*args))
+        rows = merge_dev.run_rows(*args)
+        check_equal(f"run_rows {label}", rows, merge_dev.run_rows_plain(*args))
+        if not presence and not bool((rows < 0).any()):
+            raise AssertionError("run_rows: no count at or above 2^31 in the rows")
         call = lambda: merge_dev.run_rows(*args)  # noqa: E731
         ms = median_ms(call)
         plain = median_ms(lambda: merge_dev.run_rows_plain(*args))
@@ -753,10 +879,11 @@ def compare_assemble(dev):
 
     S, U, starts, lens = assemble_plan()
     res = {}
-    # the full merge's chunks (popstrat, --save-sk) are p32 with sample ids
+    # the full merge's chunks (popstrat, --save-sk, wide sums) carry raw
+    # counts and sample ids: K-ASM is given no control streams
     for name, pack16, top, ids in (("p16", True, 1 << 15, False),
                                    ("p32", False, 1 << 32, False),
-                                   ("p32 + sample ids", False, 1 << 31, True)):
+                                   ("raw + sample ids", False, 1 << 32, True)):
         keys, counts = _random_streams(dev, S, U, 3, top)
         table = ChunkTable(keys, counts, starts, lens, N_CONTROLS)
         got = table.assemble(0, pack16, ids)
@@ -1394,6 +1521,326 @@ def run_popstrat(dev, phase3) -> dict:
     return launches["gpu"], run_launches
 
 
+#: phase 6's wide cohort: a shared pool of ~6 M k-mers, ~2^22 of them a
+#: sample: WIDE_CORE in every sample (the genome's, Poisson counts, mean
+#: 30), the rest of the sample's from the pool's others at count 1
+#: (sequencing errors); 2,000 core k-mers case-enriched 4x, and 8 k-mers
+#: with counts from 1.5e9 to 3.1e9 in several samples
+WIDE_POOL = 6_000_000
+WIDE_CORE = 3_800_000
+WIDE_PER_SAMPLE = 1 << 22
+WIDE_ENRICHED = 2000
+WIDE_HUGE = 8
+WIDE_SEED = 10
+#: the kernels a wide diff launches (popstrat adds its own)
+WIDE_KERNELS = ("run_bounds", "lrt_filter", "compact")
+
+
+def wide_cohort(run_dir: str):
+    """Phase 6's cohort, made on the host from numpy (seed WIDE_SEED): a run
+    directory in the layout `count` writes (4 partitions of count files at
+    count_bytes 4, each sample's histogram, kmtricks.fof, kmdiff-count.opt;
+    k = 31, hard-min 1) for N_CONTROLS + N_CASES samples. Each sample holds
+    ~WIDE_PER_SAMPLE of the pool's ~WIDE_POOL k-mers with Poisson(30)
+    counts; WIDE_ENRICHED k-mers count 4x in the cases; WIDE_HUGE k-mers
+    count 1.5e9 to 3.1e9 in six controls and six cases, in mirrored pairs
+    (one pair's control counts are the other's case counts), so that raw
+    counts pass 2^31 and group sums 2^32 while the groups' masses stay
+    equal. The k-mers every sample holds keep the Poisson null, so that the
+    loose cut keeps the enriched k-mers and ~0.1% of the others (a k-mer
+    present in a random subset of the samples at count 30 would be
+    overdispersed, and most such k-mers would pass). -> (pool words [P]
+    u64, exact int64 group sums [P, 2], the cohort's k-mer mass, the huge
+    k-mers' pool indices)."""
+    import numpy as np
+
+    from kmdiff_tpu_torch.io.kmtricks import hist_from_counts, write_hist, write_kmer_file
+    from kmdiff_tpu_torch.pipeline.count import host_partition_ids
+
+    rng = np.random.default_rng(WIDE_SEED)
+    S = N_CONTROLS + N_CASES
+    pool = np.unique(rng.integers(0, 2**62, WIDE_POOL, dtype=np.uint64))
+    P = len(pool)
+    parts = host_partition_ids(pool.reshape(-1, 1), 4)
+    core = np.zeros(P, bool)
+    core[rng.choice(P, WIDE_CORE, replace=False)] = True
+    pick = rng.choice(np.flatnonzero(core), WIDE_ENRICHED + WIDE_HUGE, replace=False)
+    enriched = np.zeros(P, bool)
+    enriched[pick[:WIDE_ENRICHED]] = True
+    huge = pick[WIDE_ENRICHED:]
+    errors = np.flatnonzero(~core)
+    hi = rng.integers(2_500_000_000, 3_100_000_000, (WIDE_HUGE // 2, 6))
+    lo = rng.integers(1_500_000_000, 2_000_000_000, (WIDE_HUGE // 2, 6))
+    # [huge k-mer, group, one of six carrying samples]: pair j's controls
+    # carry hi[j] and its cases lo[j]; its mirror the other way round
+    huge_counts = np.concatenate([np.stack([hi, lo], 1), np.stack([lo, hi], 1)])
+    carriers = np.stack([rng.choice(N_CONTROLS, 6, replace=False) for _ in huge])
+    sums = np.zeros((P, 2), np.int64)
+    for d in ("histograms", *(os.path.join("counts", f"partition_{p}") for p in range(4))):
+        os.makedirs(os.path.join(run_dir, d), exist_ok=True)
+    fof = []
+    for s in range(S):
+        group = int(s >= N_CONTROLS)
+        present = core.copy()
+        present[huge] = False
+        present[rng.choice(errors, WIDE_PER_SAMPLE - WIDE_CORE, replace=False)] = True
+        idx = np.flatnonzero(present)
+        c = np.where(core[idx], np.maximum(rng.poisson(30, len(idx)), 1), 1).astype(np.int64)
+        if group:
+            c[enriched[idx]] *= 4
+        at = np.flatnonzero(carriers == s % N_CONTROLS)
+        if len(at):  # the huge k-mers this sample carries
+            h, j = np.divmod(at, 6)
+            idx = np.concatenate([idx, huge[h]])
+            c = np.concatenate([c, huge_counts[h, group, j]])
+            order = np.argsort(idx, kind="stable")
+            idx, c = idx[order], c[order]
+        sums[idx, group] += c  # idx holds each k-mer once
+        sid = f"{'CASE' if group else 'CONTROL'}{s}"
+        fof.append(f"{sid} : {sid}.fasta")
+        write_hist(os.path.join(run_dir, "histograms", f"{sid}.hist"),
+                   hist_from_counts(c, s, 31))
+        for p in range(4):
+            sel = parts[idx] == p
+            write_kmer_file(
+                os.path.join(run_dir, "counts", f"partition_{p}", f"{sid}.kmer.lz4"),
+                pool[idx[sel]].reshape(-1, 1), c[sel].astype(np.uint32), 31,
+                sample_idx=s, partition=p, count_bytes=4)
+    with open(os.path.join(run_dir, "kmtricks.fof"), "w") as f:
+        f.write("\n".join(fof) + "\n")
+    with open(os.path.join(run_dir, "kmdiff-count.opt"), "w") as f:
+        f.write("kmer_size=31, abundance_min=1\n")
+    return pool, sums, int(sums.sum()), huge
+
+
+class FormSpy:
+    """Counts, while active, the merge's K-RUN calls in the full form (with
+    sample ids) and its K-LRT calls on int64 sums, by wrapping the names
+    ops.merge_dev calls them by; each wrapped call still launches its
+    kernel (the launch counts say so)."""
+
+    def __init__(self):
+        self.calls = {"run_encode full": 0, "lrt_filter int64": 0, "merge_lrt": 0}
+
+    def __enter__(self):
+        import torch
+
+        from kmdiff_tpu_torch.ops import merge_dev
+
+        self._mod = merge_dev
+        self._saved = (merge_dev.run_encode, merge_dev.lrt_filter, merge_dev.merge_lrt)
+        run_encode, lrt_filter, merge_lrt = self._saved
+
+        def run_spy(*a, sample=None, **k):
+            self.calls["run_encode full"] += sample is not None
+            return run_encode(*a, sample=sample, **k)
+
+        def lrt_spy(counts, *a, **k):
+            self.calls["lrt_filter int64"] += counts.dtype == torch.int64
+            return lrt_filter(counts, *a, **k)
+
+        def merge_spy(*a, **k):
+            self.calls["merge_lrt"] += 1
+            return merge_lrt(*a, **k)
+
+        merge_dev.run_encode, merge_dev.lrt_filter, merge_dev.merge_lrt = (
+            run_spy, lrt_spy, merge_spy)
+        return self
+
+    def __exit__(self, *exc):
+        m = self._mod
+        m.run_encode, m.lrt_filter, m.merge_lrt = self._saved
+
+    def require_wide(self, path: str) -> None:
+        c = self.calls
+        if not c["run_encode full"] or not c["lrt_filter int64"] or c["merge_lrt"]:
+            raise AssertionError(f"{path} did not take the wide merge: {c}")
+
+
+def _wide_expected(pool, sums, mass, alpha):
+    """{k-mer: (p-value, mean control, mean case) as the FASTA prints them}
+    for every pool k-mer whose host f64 rescore of its exact int64 group
+    sums has p <= alpha, with the totals diff reads from the histograms."""
+    from kmdiff_tpu_torch.cmd.options import DiffOptions
+    from kmdiff_tpu_torch.core.kmer import packed_to_strings
+    from kmdiff_tpu_torch.core.model import PoissonLikelihood
+    from kmdiff_tpu_torch.io.fasta import format_double
+
+    tot = sums.sum(0)
+    seen = sums.sum(1) > 0
+    # the per-sample totals only enter through their group sums
+    model = PoissonLikelihood(1, 1, [int(tot[0])], [int(tot[1])], DiffOptions().log_size)
+    if int(tot.sum()) != mass:
+        raise AssertionError("wide cohort: the group sums lost mass")
+    p, _sg, mc, mk = model.process_sums(sums[seen, 0], sums[seen, 1])
+    keep = p <= alpha
+    words = pool[seen][keep].reshape(-1, 1)
+    return {seq: (f"{pv:g}", str(int(c)), format_double(k)) for seq, pv, c, k in
+            zip(packed_to_strings(words, 31), p[keep], mc[keep], mk[keep])}
+
+
+def _fasta_records(out) -> dict:
+    """{k-mer: (p-value, mean control, mean case)} of a diff's two FASTA."""
+    recs = {}
+    for g in ("control", "case"):
+        for name, seq in _read_fasta(os.path.join(out, f"{g}_kmers.fasta")):
+            fields = dict(f.split("=", 1) for f in name.split("_")[1:])
+            recs[seq] = (fields["pval"], fields["control"], fields["case"])
+    return recs
+
+
+def run_wide(dev, phase3) -> dict:
+    """Phase 6: the wide cohort (wide_cohort) through `diff` on CUDA and the
+    CPU, (a) the loose cut and (b) with popstrat and --save-sk, and (c) the
+    fused `run` on phase 3's cohort with LrtParams.wide_sums forced true in
+    this process. Returns each CUDA path's launch counts."""
+    import numpy as np
+    import torch
+
+    from kmdiff_tpu_torch import kernels
+    from kmdiff_tpu_torch.cli import count_options, diff_options, main, parse_args
+    from kmdiff_tpu_torch.cmd.diff import main_diff
+    from kmdiff_tpu_torch.cmd.run import main_run
+    from kmdiff_tpu_torch.io.kmtricks import open_matrix_stream
+    from kmdiff_tpu_torch.pipeline import merge as merge_mod
+
+    run_dir = os.path.join(WORK, "wide_run")
+    t0 = time.perf_counter()
+    pool, sums, mass, huge = wide_cohort(run_dir)
+    base_mass = mass - int(sums[huge].sum())
+    print(f"[wide cohort] {N_CONTROLS}+{N_CASES} samples, {len(pool)} pooled k-mers, "
+          f"{int((sums.sum(1) > 0).sum())} carried, k-mer mass {mass} ({base_mass} without "
+          f"the {WIDE_HUGE} planted k-mers; 2^31 = {2**31}), largest group sum "
+          f"{int(sums.max())}; run directory written in {time.perf_counter() - t0:.1f} s")
+    if base_mass < 2**31 or int(sums.max()) < 2**32:
+        raise AssertionError("the wide cohort is not wide")
+    loose = ["-1", str(N_CONTROLS), "-2", str(N_CASES), "--threads", "4", "-s",
+             "0.001", "--cutoff", "1", "-c", "disabled"]
+    out, launches = {}, {}
+
+    # (a) the loose diff, CUDA then CPU; the FASTA against the host rescore
+    for where in (dev, "cpu"):
+        label = "gpu" if where is dev else "cpu"
+        out[label] = os.path.join(WORK, f"wide_{label}")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with FormSpy() as spy:
+            main(["diff", "--km-run-dir", run_dir, *loose, "--output-dir", out[label]],
+                 device=where)
+        wall = time.perf_counter() - t0
+        if where is dev:
+            launches["a"] = kernels.launch_counts()
+            require_launches("wide diff", launches["a"], WIDE_KERNELS)
+            spy.require_wide("wide diff")
+            print(f"[wide diff] CUDA {wall:.3f} s wall; launches {launches['a']}; "
+                  f"merge calls {spy.calls}")
+        else:
+            print(f"[wide diff] CPU {wall:.3f} s wall")
+    for g in ("control", "case"):
+        if not _same_bytes(*(os.path.join(out[k], f"{g}_kmers.fasta") for k in out)):
+            raise AssertionError(f"wide diff {g}_kmers.fasta: CUDA and CPU differ")
+    got = _fasta_records(out["gpu"])
+    want = _wide_expected(pool, sums, mass, 0.001)
+    if got != want:
+        raise AssertionError(f"wide diff: {len(got)} FASTA records, {len(want)} from the "
+                             f"host int64 rescore, {len(set(got) ^ set(want))} k-mers in "
+                             "one only")
+    print(f"[check] wide diff -s 0.001 --cutoff 1 -c disabled: {len(got)} k-mers, FASTA "
+          f"byte-identical CUDA vs CPU and equal, record for record, to the host f64 "
+          f"rescore of the input's exact int64 group sums")
+
+    # (b) popstrat and --save-sk, CUDA then CPU
+    flags = [*loose, "--pop-correction", "--save-sk"]
+    for where in (dev, "cpu"):
+        label = "pop_gpu" if where is dev else "pop_cpu"
+        out[label] = os.path.join(WORK, f"wide_{label}")
+        args = parse_args(["diff", "--km-run-dir", run_dir, *flags, "--output-dir",
+                           out[label]])
+        timings = {}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with FormSpy() as spy:
+            res = main_diff(diff_options(args), torch.device(where), timings)
+        wall = time.perf_counter() - t0
+        if where is dev:
+            launches["b"] = kernels.launch_counts()
+            require_launches("wide popstrat diff", launches["b"],
+                             (*WIDE_KERNELS, "run_rows", "geno_sample"))
+            spy.require_wide("wide popstrat diff")
+        print(f"[wide popstrat diff] {label[4:].upper()} {wall:.3f} s wall (PCA "
+              f"{timings['pca']:.3f} s, null fit {timings['null_fit']:.3f} s, alt fits "
+              f"{timings['alt_fits']:.3f} s); significant {res['control']} control / "
+              f"{res['case']} case" + (f"; launches {launches['b']}" if where is dev else ""))
+    for name in POP_ARTIFACTS:
+        if not _same_bytes(*(os.path.join(out[k], "popstrat", name)
+                             for k in ("pop_gpu", "pop_cpu"))):
+            raise AssertionError(f"wide popstrat diff {name}: CUDA and CPU differ")
+    mdir = os.path.join("positive_kmer_matrix", "matrices")
+    mats = sorted(os.listdir(os.path.join(out["pop_gpu"], mdir)))
+    if mats != sorted(os.listdir(os.path.join(out["pop_cpu"], mdir))) or not mats:
+        raise AssertionError(f"wide popstrat diff: --save-sk matrices {mats}")
+    planted = {}
+    for name in mats:
+        a, b = (os.path.join(out[k], mdir, name) for k in ("pop_gpu", "pop_cpu"))
+        if not _same_bytes(a, b):
+            raise AssertionError(f"wide popstrat diff {name}: CUDA and CPU differ")
+        for kmers, counts in open_matrix_stream(a)[1]:
+            planted.update(zip(kmers[:, 0].tolist(), counts))
+    held = []
+    for h in huge:
+        r = planted.get(int(pool[h]))
+        if r is not None:
+            r = r.astype(np.int64)
+            ctrl, case = r[:N_CONTROLS].sum(), r[N_CONTROLS:].sum()
+            if (ctrl, case) != tuple(sums[h]) or r.max() < 2**31:
+                raise AssertionError(f"wide --save-sk: k-mer {int(pool[h])}'s row {r} "
+                                     f"lost its planted counts (group sums {sums[h]})")
+            held.append(int(r.max()))
+    if not held:
+        raise AssertionError("wide --save-sk: no planted count of 2^31 or more survived")
+    print(f"[check] wide popstrat diff: artifacts and {len(mats)} --save-sk matrices "
+          f"byte-identical CUDA vs CPU; {len(held)} of the {WIDE_HUGE} planted k-mers in "
+          f"the matrices with their raw counts, up to {max(held)}")
+
+    # (c) the fused run on phase 3's cohort, wide sums forced in this process
+    base = merge_mod.LrtParams
+
+    class ForcedWide(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.wide_sums = True
+
+    run_out = os.path.join(WORK, "wide_forced_run_out")
+    args = parse_args(["run", "--file", phase3["fof"], "--kmer-size", "31", "--hard-min",
+                       "1", "--nb-partitions", "4", *loose, "--run-dir",
+                       os.path.join(WORK, "wide_forced_run"), "--output-dir", run_out])
+    timings = {}
+    merge_mod.LrtParams = ForcedWide
+    try:
+        kernels.reset_launch_counts()
+        with FormSpy() as spy:
+            res = main_run(count_options(args), diff_options(args), dev,
+                           recurrence_min=args.recurrence_min,
+                           count_files=not args.no_count_files, timings=timings)
+        launches["c"] = kernels.launch_counts()
+    finally:
+        merge_mod.LrtParams = base
+    if "merge" not in timings:
+        raise AssertionError("forced-wide run was not served by the fused path")
+    require_launches("forced-wide run", launches["c"], (*WIDE_KERNELS, "assemble_chunk"))
+    spy.require_wide("forced-wide run")
+    for g in ("control", "case"):
+        name = f"{g}_kmers.fasta"
+        if not _same_bytes(os.path.join(run_out, name), os.path.join(WORK, "loose_gpu", name)):
+            raise AssertionError(f"forced-wide run {name} differs from phase 3's loose diff")
+    print(f"[wide run] forced wide sums on the bench cohort: count {timings['count']:.3f} s, "
+          f"merge {timings['merge']:.3f} s, total {timings['total']:.3f} s (wall, CUDA); "
+          f"significant {res['control']} control / {res['case']} case, FASTA "
+          f"byte-identical to phase 3's loose diff; launches {launches['c']}; merge "
+          f"calls {spy.calls}")
+    return launches
+
+
 def load_native() -> None:
     """Build and load the port's native host-IO library; it must come from
     the checkout's build/kmdiff_tpu_torch/native/."""
@@ -1450,11 +1897,14 @@ def main() -> int:
         phase3 = run_main_path(dev)
         fused_launches = run_fused(dev, phase3)
         pop_launches, pop_run_launches = run_popstrat(dev, phase3)
+        wide_launches = run_wide(dev, phase3)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     paths = {"count+diff": phase3["launches"], "run (a)": fused_launches["a"],
              "run (b)": fused_launches["b"], "popstrat diff": pop_launches,
-             "popstrat run": pop_run_launches}
+             "popstrat run": pop_run_launches, "wide diff": wide_launches["a"],
+             "wide popstrat diff": wide_launches["b"],
+             "forced-wide run": wide_launches["c"]}
     for name in timings:
         print(f"[launches] {name}: " + ", ".join(
             f"{path} {launches[name]}" for path, launches in paths.items()))
@@ -1485,6 +1935,9 @@ def main() -> int:
             "source": f"kmdiff_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name], **timings[name],
         })
+        if "wide_ms" in timings[name] and name != "abundance_hist":
+            # the wide forms' launches on phase 6's wide diff
+            rows[-1]["wide_launches"] = wide_launches["a"][name]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@ background threads that overlap the merge, or not at all with
 With --pop-correction the merge keeps the survivors' count rows and
 samples the geno rows (pipeline.fused's full merge), the resident streams
 are let go, and popstrat corrects the hits (pipeline.popstrat) before the
-output.
+output. A cohort whose k-mer mass reaches 2^31 takes the full merge too,
+for its int64 group sums.
 
 Resumes (an existing options.json, or a run directory with every count
 file) take the standard count + diff flow, and so does a cohort the fused

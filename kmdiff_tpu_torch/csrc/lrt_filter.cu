@@ -16,6 +16,16 @@
 // pointer (null: not written). The merge reads keep alone, the matrix path
 // keep and the sums.
 //
+// Wide counts: int64 [B, S] (the wide merge's [U, 2] group sums, from
+// run_bounds.cu's full form, which may pass 2^31 and 2^32), keep alone. The
+// sums are exact int64 and each is rounded to f32 once (__ll2float_rn), the
+// rest is the same filter. The JAX package's wide merge
+// (kmdiff_tpu/ops/merge_dev.py:244-266) sums each count's 16-bit halves and
+// feeds the filter f32(hi) * 65536 + f32(lo): while a half-sum stays below
+// 2^24 (S <= 256 samples) each term is exact and the one f32 addition rounds
+// the exact sum, which is __ll2float_rn's value, so the keep masks agree bit
+// for bit there.
+//
 // Layout: the Pallas kernel transposed the counts to [S_pad, B] and padded
 // each group to 8 rows for Mosaic's sublane tiling, and needed B % 1024 == 0.
 // None of that is needed here: the counts are read row-major as they are,
@@ -37,6 +47,9 @@
 //          row, a row a thread. (PERF.md section 6: warp-strided loads with
 //          two-row keep stores, or with ballots gathering 8-byte keep
 //          stores, took 7-12% longer.)
+//   wide pairs  int64 S = 2, 16-byte aligned, keep alone: a row is one
+//          16-byte load; a thread takes eight consecutive rows and stores
+//          their keep in one 8-byte store (17 bytes a row move)
 //   rows   everything else: a thread a row, reading its S counts and writing
 //          what is asked for; a warp's loads span its 32 rows, which L1
 //          serves after the first touch of each line. It takes the matrix
@@ -58,6 +71,7 @@ namespace {
 constexpr float kMarginPerCount = 4e-6f;
 constexpr float kMarginAbs = 1e-3f;
 constexpr int kPairVecs = 4;   // consecutive 16-byte loads (of two rows) a thread, pairs form
+constexpr int kWideRows = 8;   // consecutive 16-byte rows a thread, wide pairs form
 constexpr int kThreads = 256;
 
 struct Filter {
@@ -68,19 +82,33 @@ struct Filter {
   int32_t* s_c;   // s_c and s_k, or both null
   int32_t* s_k;
 
-  __device__ __forceinline__ float lr_of(int32_t sc, int32_t sk) const {
-    const float fc = static_cast<float>(sc);
-    const float fk = static_cast<float>(sk);
+  // the LR of the sums' f32 values fc and fk; pc and pk: the sums are > 0
+  __device__ __forceinline__ float lr_f(float fc, float fk, bool pc, bool pk) const {
     const float tot = fc + fk;
     const float safe_tot = fmaxf(tot, 1.0f);
-    const float term_c = sc > 0 ? fc * logf(fmaxf(fc, 1.0f) / (safe_tot * ratio_c)) : 0.0f;
-    const float term_k = sk > 0 ? fk * logf(fmaxf(fk, 1.0f) / (safe_tot * ratio_k)) : 0.0f;
+    const float term_c = pc ? fc * logf(fmaxf(fc, 1.0f) / (safe_tot * ratio_c)) : 0.0f;
+    const float term_k = pk ? fk * logf(fmaxf(fk, 1.0f) / (safe_tot * ratio_k)) : 0.0f;
     return fmaxf(tot > 0.0f ? term_c + term_k : 0.0f, 0.0f);
   }
 
-  __device__ __forceinline__ bool keep_of(float l, int32_t sc, int32_t sk) const {
-    const float tot = static_cast<float>(sc) + static_cast<float>(sk);
+  __device__ __forceinline__ bool keep_f(float l, float fc, float fk) const {
+    const float tot = fc + fk;
     return l + kMarginPerCount * tot + kMarginAbs >= lr_min;
+  }
+
+  __device__ __forceinline__ float lr_of(int32_t sc, int32_t sk) const {
+    return lr_f(static_cast<float>(sc), static_cast<float>(sk), sc > 0, sk > 0);
+  }
+
+  __device__ __forceinline__ bool keep_of(float l, int32_t sc, int32_t sk) const {
+    return keep_f(l, static_cast<float>(sc), static_cast<float>(sk));
+  }
+
+  // int64 sums, each rounded to f32 once
+  __device__ __forceinline__ bool keep_wide(long long sc, long long sk) const {
+    const float fc = __ll2float_rn(sc);
+    const float fk = __ll2float_rn(sk);
+    return keep_f(lr_f(fc, fk, sc > 0, sk > 0), fc, fk);
   }
 
   // one row, scalar stores
@@ -95,8 +123,8 @@ struct Filter {
   }
 };
 
-__device__ __forceinline__ void split_pair(int32_t a, int32_t b, int nb_controls,
-                                           int32_t& sc, int32_t& sk) {
+template <typename T>
+__device__ __forceinline__ void split_pair(T a, T b, int nb_controls, T& sc, T& sk) {
   sc = (nb_controls > 0 ? a : 0) + (nb_controls > 1 ? b : 0);
   sk = (nb_controls > 0 ? 0 : a) + (nb_controls > 1 ? 0 : b);
 }
@@ -152,44 +180,93 @@ lrt_pairs_kernel(const int32_t* __restrict__ counts, long long B, int lead,
   }
 }
 
+// Wide pairs: row r is one 16-byte load (s_c, s_k int64); thread t takes
+// rows 8t .. 8t + 7 and writes only keep.
 __global__ void __launch_bounds__(kThreads)
-lrt_rows_kernel(const int32_t* __restrict__ counts, long long B, int S, Filter f) {
+lrt_wide_pairs_kernel(const long long* __restrict__ sums, long long B, Filter f) {
+  const long long r0 = kWideRows * (blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x);
+  if (r0 >= B) return;
+  const longlong2* src = reinterpret_cast<const longlong2*>(sums) + r0;
+  longlong2 v[kWideRows];
+#pragma unroll
+  for (int j = 0; j < kWideRows; ++j) {
+    v[j] = r0 + j < B ? __ldcs(src + j) : make_longlong2(0, 0);
+  }
+  unsigned long long bytes = 0;
+#pragma unroll
+  for (int j = 0; j < kWideRows; ++j) {
+    long long sc, sk;
+    split_pair(v[j].x, v[j].y, f.nb_controls, sc, sk);
+    bytes |= static_cast<unsigned long long>(f.keep_wide(sc, sk)) << (8 * j);
+  }
+  const long long n_own = min(static_cast<long long>(kWideRows), B - r0);
+  uint8_t* keep = f.keep + r0;
+  if (n_own == kWideRows && aligned(keep, 8)) {
+    *reinterpret_cast<unsigned long long*>(keep) = bytes;
+  } else {
+    for (int j = 0; j < n_own; ++j) keep[j] = static_cast<uint8_t>(bytes >> (8 * j));
+  }
+}
+
+// int32 counts: every output asked for; int64 counts: keep alone
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lrt_rows_kernel(const T* __restrict__ counts, long long B, int S, Filter f) {
   const long long row = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
   if (row >= B) return;
-  const int32_t* r = counts + row * S;
-  int32_t sc = 0;
-  int32_t sk = 0;
+  const T* r = counts + row * S;
+  T sc = 0;
+  T sk = 0;
 #pragma unroll 8
   for (int j = 0; j < S; ++j) {
-    const int32_t v = __ldg(r + j);
+    const T v = __ldg(r + j);
     if (j < f.nb_controls) sc += v; else sk += v;
   }
-  f.write(row, sc, sk);
+  if constexpr (sizeof(T) == 8) {
+    f.keep[row] = f.keep_wide(sc, sk) ? 1 : 0;
+  } else {
+    f.write(row, sc, sk);
+  }
 }
 
 }  // namespace
 
-// counts [B, S] int32 row-major, aligned to 4 bytes; keep [B] (written);
-// lr [B], and s_c and s_k [B] (both or neither), or null to write none.
-KMD_API int kmd_lrt_filter(const int32_t* counts, long long B, int S,
+// counts [B, S] row-major: int32 aligned to 4 bytes (wide = 0) or int64
+// aligned to 8 (wide = 1); keep [B] (written); lr [B], and s_c and s_k [B]
+// (both or neither), or null to write none; wide counts write keep alone.
+KMD_API int kmd_lrt_filter(const void* counts, long long B, int S, int wide,
                            int nb_controls, float ratio_c, float ratio_k,
                            float lr_min, uint8_t* keep, float* lr,
                            int32_t* s_c, int32_t* s_k, cudaStream_t stream) {
   if (B < 0 || S < 0 || nb_controls < 0 || nb_controls > S || keep == nullptr ||
-      (s_c == nullptr) != (s_k == nullptr)) {
+      (s_c == nullptr) != (s_k == nullptr) ||
+      (wide && (lr != nullptr || s_c != nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return static_cast<int>(cudaGetLastError());
   const Filter f{nb_controls, ratio_c, ratio_k, lr_min, keep, lr, s_c, s_k};
   const unsigned long long addr = reinterpret_cast<unsigned long long>(counts);
+  if (wide) {
+    const long long* sums = static_cast<const long long*>(counts);
+    if (S == 2 && addr % 16 == 0) {
+      lrt_wide_pairs_kernel<<<kmd::grid_for((B + kWideRows - 1) / kWideRows, kThreads),
+                              kThreads, 0, stream>>>(sums, B, f);
+    } else {
+      lrt_rows_kernel<long long><<<kmd::grid_for(B, kThreads), kThreads, 0, stream>>>(
+          sums, B, S, f);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int32_t* c32 = static_cast<const int32_t*>(counts);
   if (S == 2 && addr % 8 == 0 && lr == nullptr && s_c == nullptr) {
     const int lead = addr % 16 != 0 ? 1 : 0;
     const long long n_vec = (B - lead) / 2;
     unsigned blocks = kmd::grid_for((n_vec + kPairVecs - 1) / kPairVecs, kThreads);
     blocks = blocks > 0 ? blocks : 1;
-    lrt_pairs_kernel<<<blocks, kThreads, 0, stream>>>(counts, B, lead, n_vec, f);
+    lrt_pairs_kernel<<<blocks, kThreads, 0, stream>>>(c32, B, lead, n_vec, f);
   } else {
-    lrt_rows_kernel<<<kmd::grid_for(B, kThreads), kThreads, 0, stream>>>(counts, B, S, f);
+    lrt_rows_kernel<int32_t><<<kmd::grid_for(B, kThreads), kThreads, 0, stream>>>(
+        c32, B, S, f);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,9 @@
 // Replaces the run-length half of kmdiff_tpu/ops/codec.py::sort_rle_core
 // (codec.py:341, :377-395: run starts, per-run lengths) and the segment sums
 // of kmdiff_tpu/ops/merge_dev.py::merge_lrt_local's packed branch
-// (merge_dev.py:75, :182-263: per-run control and case sums). One entry
-// point, kmd_run_encode, one launch, in one of three forms:
+// (merge_dev.py:75, :182-263: per-run control and case sums) and its full
+// branch with the wide sums (merge_dev.py:230-257, :275-286). One entry
+// point, kmd_run_encode, one launch, in one of four forms:
 //   dedup   starts [U] int64, run_keys [U] int64, n_valid [1] int64
 //           (starts only where the caller passes them: sort_rle and the
 //           packed merge need none)
@@ -16,6 +17,12 @@
 //           merge_dev.py::build_triples_packed's:
 //             merge16: u16, count in bits 0..14, control flag in bit 15
 //             merge32: i32, count in bits 0..30, control flag in the sign bit
+//   full    the same but sums [U, 2] int64, of raw u32 counts (int32 holding
+//           u32, merge_dev.py::build_triples's), a row being a control where
+//           its sample id, sample[perm[r]] (u16), is below nb_controls: the
+//           JAX package's full branch, exact at any cohort mass (its TPU
+//           form summed each count's 16-bit halves apart; the H100 adds
+//           int64 natively)
 // and U, the number of runs, into page-locked host memory. n_valid is the
 // number of rows before the sentinel tail (N without one).
 //
@@ -25,13 +32,14 @@
 // counts through it.
 //
 // Bound on the H100: device memory. The floor reads the keys once (8N
-// bytes; the merge form also 8N of permutation and 2N or 4N of counts) and
-// writes 8 bytes a run (its key), 8 more where starts are asked for, and 4
-// (lengths) or 8 (sums). The design keeps
+// bytes; the merge form also 8N of permutation and 2N or 4N of counts, the
+// full form 4N of counts and 2N of sample ids) and writes 8 bytes a run
+// (its key), 8 more where starts are asked for, and 4 (lengths), 8 (sums)
+// or 16 (full sums). The design keeps
 // every intermediate out of device memory:
 //   1. a block owns a tile of 2048 rows, 8 rounds of 256 threads (1024
-//      rows, 4 rounds, in the merge forms, whose permutation reads and
-//      count gathers double a row's registers); round j reads rows
+//      rows, 4 rounds, in the merge and full forms, whose permutation reads
+//      and count gathers double a row's registers); round j reads rows
 //      j*256 .. j*256+255 of the tile, 8 bytes a lane, so every
 //      load of a warp is one contiguous 256-byte line; all the rounds'
 //      loads (and the merge form's permutation reads, then their count
@@ -43,8 +51,9 @@
 //      stay in registers as one warp ballot a round; a scan over the
 //      (round, warp) counts ranks them, and their tile offsets and keys are
 //      staged in order in shared memory, so a run's end is the next staged
-//      boundary. The merge form adds each row's count into its run's slot
-//      in shared memory (shared atomics, exact in int32)
+//      boundary. The merge forms add each row's count into its run's slot
+//      in shared memory (shared atomics, exact in int32; int64 in the full
+//      form)
 //   3. decoupled look-back (kmd_lookback.cuh, shared with K-CMP) gives the
 //      tile its output offset, while a second warp finishes the tile's last
 //      run if it crosses the tile's edge: the count form by one thread's
@@ -63,15 +72,17 @@
 // with cudaMemsetAsync. One memset, one kernel and one host sync a call.
 #include "kmd_lookback.cuh"
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-enum Form { kDedup = 0, kCount = 1, kMerge16 = 2, kMerge32 = 3 };
+enum Form { kDedup = 0, kCount = 1, kMerge16 = 2, kMerge32 = 3, kFull = 4 };
 
 // Rows a thread: 8 (a 2048-row tile) in the count and dedup forms, 4 (1024
-// rows) in the merge forms, whose permutation reads and count gathers
+// rows) in the merge and full forms, whose permutation reads and count gathers
 // double a row's registers and whose per-run sums take shared memory.
 // Smaller tiles fill the SMs with more blocks (tools/krun_tiles.py, on an
 // H100 SXM at 700 W: the count form took 0.1315 ms at 4096-row tiles and
@@ -79,7 +90,9 @@ enum Form { kDedup = 0, kCount = 1, kMerge16 = 2, kMerge32 = 3 };
 // ms at 1024). The scan needs kRounds * kWarps >= 32.
 template <int F>
 struct Tile {
-  static constexpr bool kMerge = F == kMerge16 || F == kMerge32;
+  static constexpr bool kMerge = F == kMerge16 || F == kMerge32 || F == kFull;
+  // a run's sums: int64 in the full form, else int32
+  using Sum = typename std::conditional<F == kFull, long long, int32_t>::type;
   static constexpr int kRounds = kMerge ? 4 : 8;
   static constexpr int kRows = kThreads * kRounds;  // a tile offset fits 16 bits
   static constexpr int kSlots = kRounds * kWarps;   // (round, warp) boundary counts
@@ -101,17 +114,23 @@ __device__ __forceinline__ void stream_store(T* p, T v) {
 }
 
 
+// row p's count and control flag: from the packing (merge forms) or raw
+// with the sample id (full form)
 template <int F>
-__device__ __forceinline__ void unpack(const void* counts, long long p,
-                                       int32_t& v, bool& ctrl) {
-  if (F == kMerge16) {
+__device__ __forceinline__ void unpack(const void* counts, const uint16_t* sample,
+                                       int nb_controls, long long p,
+                                       typename Tile<F>::Sum& v, bool& ctrl) {
+  if constexpr (F == kMerge16) {
     const uint16_t c = __ldg(static_cast<const uint16_t*>(counts) + p);
     ctrl = (c & 0x8000u) != 0;
     v = static_cast<int32_t>(c & 0x7FFFu);
-  } else {
+  } else if constexpr (F == kMerge32) {
     const int32_t c = __ldg(static_cast<const int32_t*>(counts) + p);
     ctrl = c < 0;
     v = c & 0x7FFFFFFF;
+  } else {
+    v = __ldg(static_cast<const uint32_t*>(counts) + p);
+    ctrl = __ldg(sample + p) < nb_controls;
   }
 }
 
@@ -140,8 +159,9 @@ template <int F>
 __global__ void __launch_bounds__(kThreads)
 run_encode_kernel(const int64_t* __restrict__ keys, long long N,
                   const int64_t* __restrict__ perm, const void* __restrict__ counts,
+                  const uint16_t* __restrict__ sample, int nb_controls,
                   int n_tiles, int64_t* __restrict__ starts,
-                  int64_t* __restrict__ run_keys, int32_t* __restrict__ third,
+                  int64_t* __restrict__ run_keys, void* __restrict__ third,
                   int64_t* __restrict__ n_valid, unsigned long long* scratch,
                   long long* n_runs) {
   constexpr bool kMerge = Tile<F>::kMerge;
@@ -149,9 +169,10 @@ run_encode_kernel(const int64_t* __restrict__ keys, long long N,
   constexpr int kTile = Tile<F>::kRows;
   constexpr int kSlots = Tile<F>::kSlots;
   constexpr bool kHint = Tile<F>::kStreamHints;
+  using Sum = typename Tile<F>::Sum;
   __shared__ uint16_t rows[kTile];    // boundary tile offsets, ascending
   __shared__ int64_t run_key[kTile];  // the key at each boundary
-  __shared__ __align__(16) int32_t sums[kMerge ? 2 * kTile : 4];
+  __shared__ __align__(16) Sum sums[kMerge ? 2 * kTile : 4];
   __shared__ int slot[kSlots + 1];    // counts, then exclusive prefixes
   __shared__ int tile_id;
   __shared__ int sentinel_at;       // tile offset of the first sentinel row
@@ -167,7 +188,8 @@ run_encode_kernel(const int64_t* __restrict__ keys, long long N,
   }
   if (kMerge) {  // 16 bytes a store
     int4* z = reinterpret_cast<int4*>(sums);
-    for (int i = threadIdx.x; i < 2 * kTile / 4; i += kThreads) z[i] = make_int4(0, 0, 0, 0);
+    constexpr int kVectors = 2 * kTile * static_cast<int>(sizeof(Sum)) / 16;
+    for (int i = threadIdx.x; i < kVectors; i += kThreads) z[i] = make_int4(0, 0, 0, 0);
   }
   __syncthreads();
   const int t = tile_id;
@@ -181,7 +203,7 @@ run_encode_kernel(const int64_t* __restrict__ keys, long long N,
     const long long i = row0 + j * kThreads;
     key[j] = i < N ? stream_load<kHint>(keys + i) : kmd::kSentinel;
   }
-  int32_t val[kRounds];
+  Sum val[kRounds];
   unsigned ctrl_bits = 0;
   if (kMerge) {
     long long p[kRounds];
@@ -194,7 +216,7 @@ run_encode_kernel(const int64_t* __restrict__ keys, long long N,
     for (int j = 0; j < kRounds; ++j) {
       bool c = false;
       val[j] = 0;
-      if (p[j] >= 0) unpack<F>(counts, p[j], val[j], c);
+      if (p[j] >= 0) unpack<F>(counts, sample, nb_controls, p[j], val[j], c);
       ctrl_bits |= static_cast<unsigned>(c) << j;
     }
   }
@@ -257,7 +279,13 @@ run_encode_kernel(const int64_t* __restrict__ keys, long long N,
     // a valid row's run is the last boundary at or before it
     const int r = before + static_cast<int>((b >> lane) & 1u) - 1;
     if (kMerge && ((valid_bits >> j) & 1u) && r >= 0) {
-      atomicAdd(&sums[2 * r + (((ctrl_bits >> j) & 1u) ? 0 : 1)], val[j]);
+      Sum* slot_sum = &sums[2 * r + (((ctrl_bits >> j) & 1u) ? 0 : 1)];
+      if constexpr (F == kFull) {
+        atomicAdd(reinterpret_cast<unsigned long long*>(slot_sum),
+                  static_cast<unsigned long long>(val[j]));
+      } else {
+        atomicAdd(slot_sum, val[j]);
+      }
     }
   }
   __syncthreads();
@@ -277,15 +305,15 @@ run_encode_kernel(const int64_t* __restrict__ keys, long long N,
     if (F == kCount) {
       if (lane == 0) last_end = run_end(keys, N, edge, last);
     } else {
-      int32_t s_c = 0;
-      int32_t s_k = 0;
+      Sum s_c = 0;
+      Sum s_k = 0;
       for (long long r0 = edge;; r0 += 32) {
         const long long r = r0 + lane;
         const bool in = r < N && __ldg(keys + r) == last;
         if (in) {
-          int32_t v;
+          Sum v;
           bool c;
-          unpack<F>(counts, __ldg(perm + r), v, c);
+          unpack<F>(counts, sample, nb_controls, __ldg(perm + r), v, c);
           if (c) s_c += v; else s_k += v;
         }
         if (__ballot_sync(0xffffffffu, in) != 0xffffffffu) break;
@@ -311,22 +339,39 @@ run_encode_kernel(const int64_t* __restrict__ keys, long long N,
     stream_store<kHint>(reinterpret_cast<long long*>(run_keys) + o,
                  static_cast<long long>(run_key[p]));
     if (F == kCount) {
-      stream_store<kHint>(third + o, static_cast<int32_t>(
+      stream_store<kHint>(static_cast<int32_t*>(third) + o, static_cast<int32_t>(
                                   (p + 1 < n_bound ? base + rows[p + 1] : last_end) - r));
+    } else if (F == kFull) {  // 16-byte aligned (the entry point checks)
+      stream_store<kHint>(static_cast<longlong2*>(third) + o,
+                          reinterpret_cast<const longlong2*>(sums)[p]);
     } else if (kMerge) {
-      stream_store<kHint>(reinterpret_cast<int2*>(third) + o, reinterpret_cast<const int2*>(sums)[p]);
+      stream_store<kHint>(static_cast<int2*>(third) + o, reinterpret_cast<const int2*>(sums)[p]);
     }
   }
 }
 
+struct Args {
+  const int64_t* keys;
+  long long N;
+  const int64_t* perm;
+  const void* counts;
+  const uint16_t* sample;
+  int nb_controls;
+  int n_tiles;
+  int64_t* starts;
+  int64_t* run_keys;
+  void* third;
+  int64_t* n_valid;
+  int64_t* scratch;
+  long long* n_runs;
+};
+
 template <int F>
-void launch(const int64_t* keys, long long N, const int64_t* perm,
-            const void* counts, int n_tiles, int64_t* starts, int64_t* run_keys,
-            int32_t* third, int64_t* n_valid, int64_t* scratch, long long* n_runs,
-            cudaStream_t stream) {
-  run_encode_kernel<F><<<static_cast<unsigned>(n_tiles), kThreads, 0, stream>>>(
-      keys, N, perm, counts, n_tiles, starts, run_keys, third, n_valid,
-      reinterpret_cast<unsigned long long*>(scratch), n_runs);
+void launch(const Args& a, cudaStream_t stream) {
+  run_encode_kernel<F><<<static_cast<unsigned>(a.n_tiles), kThreads, 0, stream>>>(
+      a.keys, a.N, a.perm, a.counts, a.sample, a.nb_controls, a.n_tiles, a.starts,
+      a.run_keys, a.third, a.n_valid, reinterpret_cast<unsigned long long*>(a.scratch),
+      a.n_runs);
 }
 
 }  // namespace
@@ -337,43 +382,38 @@ KMD_API long long kmd_run_encode_tile_rows(int form) {
 }
 
 // keys [N] int64 ascending, N > 0, 8-byte aligned; form 0 dedup, 1 count,
-// 2 merge16, 3 merge32; perm [N] and counts [N] for the merge forms (else
-// null); starts (or null, to write none) and run_keys with room for N rows;
-// third: lengths [N] int32
-// (count), sums [N, 2] int32 (merge) or null (dedup); n_valid [1]; scratch
-// as the header says; n_runs: page-locked host memory, written by the
+// 2 merge16, 3 merge32, 4 full; perm [N] and counts [N] for the merge and
+// full forms (else null); sample [N] (u16) and nb_controls for the full form
+// (else null and 0); starts (or null, to write none) and run_keys with room
+// for N rows; third: lengths [N] int32 (count), sums [N, 2] int32 (merge),
+// sums [N, 2] int64, 16-byte aligned (full), or null (dedup); n_valid [1];
+// scratch as the header says; n_runs: page-locked host memory, written by the
 // kernel through the same pointer under unified addressing. Like K-CMP's
 // entry point this one waits for its kernel, so that *n_runs holds U when
 // it returns: the one host sync of a call.
 KMD_API int kmd_run_encode(const int64_t* keys, long long N, int form,
                            const int64_t* perm, const void* counts,
-                           int64_t* starts, int64_t* run_keys, int32_t* third,
+                           const uint16_t* sample, int nb_controls,
+                           int64_t* starts, int64_t* run_keys, void* third,
                            int64_t* n_valid, int64_t* scratch, long long* n_runs,
                            cudaStream_t stream) {
-  if (N <= 0 || form < kDedup || form > kMerge32) {
+  if (N <= 0 || form < kDedup || form > kFull ||
+      (form == kFull && (sample == nullptr ||
+                         reinterpret_cast<unsigned long long>(third) % 16 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long tile = kmd_run_encode_tile_rows(form);
   const long long n_tiles = (N + tile - 1) / tile;
   cudaError_t e = cudaMemsetAsync(scratch, 0, (1 + n_tiles) * sizeof(int64_t), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int nt = static_cast<int>(n_tiles);
+  const Args a{keys, N, perm, counts, sample, nb_controls, static_cast<int>(n_tiles),
+               starts, run_keys, third, n_valid, scratch, n_runs};
   switch (form) {
-    case kDedup:
-      launch<kDedup>(keys, N, perm, counts, nt, starts, run_keys, third, n_valid,
-                     scratch, n_runs, stream);
-      break;
-    case kCount:
-      launch<kCount>(keys, N, perm, counts, nt, starts, run_keys, third, n_valid,
-                     scratch, n_runs, stream);
-      break;
-    case kMerge16:
-      launch<kMerge16>(keys, N, perm, counts, nt, starts, run_keys, third, n_valid,
-                       scratch, n_runs, stream);
-      break;
-    default:
-      launch<kMerge32>(keys, N, perm, counts, nt, starts, run_keys, third, n_valid,
-                       scratch, n_runs, stream);
+    case kDedup: launch<kDedup>(a, stream); break;
+    case kCount: launch<kCount>(a, stream); break;
+    case kMerge16: launch<kMerge16>(a, stream); break;
+    case kMerge32: launch<kMerge32>(a, stream); break;
+    default: launch<kFull>(a, stream);
   }
   e = cudaGetLastError();
   if (e == cudaSuccess) e = cudaStreamSynchronize(stream);

@@ -9,10 +9,11 @@
 // rows in sorted order, [starts[j], end_j), end_j the next run start or
 // n_valid. For each selected run sel[h], row h of the [H, S] output is
 // zero but for its rows:
-//   rows[h, sample[perm[r]]] = count[perm[r]] & 0x7FFFFFFF
-// counts in the p32 packing (control flag in the sign bit, the packing of
-// run_bounds.cu's group sums), sample ids as u16. The presence form writes
-// count > 0 as u8. A sample id >= S is ignored.
+//   rows[h, sample[perm[r]]] = count[perm[r]]
+// raw u32 counts (the full merge's: no control flag, which the merge reads
+// from the sample id), sample ids as u16. The presence form writes
+// count != 0 as u8, so that a count of 2^31 or more, negative as an int32,
+// is present. A sample id >= S is ignored.
 //
 // The TPU form is gone: no S-wide window from each start with masks for the
 // neighbouring runs and a scatter into an [n_slots, S + 1] buffer. One warp
@@ -58,7 +59,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (begin + lane < end) {
     const long long p = perm[begin + lane];
     s0 = sample[p];
-    v0 = count[p] & 0x7FFFFFFF;
+    v0 = count[p];
   }
   Out* row = rows + h * S;
   for (int c0 = 0; c0 < S; c0 += kTile) {
@@ -69,12 +70,12 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (long long r = begin + 32 + lane; r < end; r += 32) {
       const long long p = perm[r];
       const int s = sample[p];
-      if (s >= c0 && s < c0 + width) tile[s - c0] = count[p] & 0x7FFFFFFF;
+      if (s >= c0 && s < c0 + width) tile[s - c0] = count[p];
     }
     __syncwarp();
     for (int c = lane; c < width; c += 32) {
       const int32_t v = tile[c];
-      row[c0 + c] = sizeof(Out) == 1 ? static_cast<Out>(v > 0) : static_cast<Out>(v);
+      row[c0 + c] = sizeof(Out) == 1 ? static_cast<Out>(v != 0) : static_cast<Out>(v);
     }
     __syncwarp();  // the tile's readers are done before the next round clears it
   }

@@ -70,12 +70,12 @@ _f = ctypes.c_float
 
 #: C signatures: name -> (restype, argtypes)
 _SIGNATURES = {
-    "kmd_lrt_filter": (_i, [_vp, _ll, _i, _i, _f, _f, _f, _vp, _vp, _vp, _vp, _vp]),
+    "kmd_lrt_filter": (_i, [_vp, _ll, _i, _i, _i, _f, _f, _f, _vp, _vp, _vp, _vp, _vp]),
     "kmd_canonical_kmers_tile_windows": (_ll, []),
     "kmd_canonical_kmers": (_i, [_vp, _ll, _i, _vp, _vp]),
     "kmd_run_encode_tile_rows": (_ll, [_i]),
-    "kmd_run_encode": (_i, [_vp, _ll, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                            _vp]),
+    "kmd_run_encode": (_i, [_vp, _ll, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp,
+                            _vp, _vp, _vp]),
     "kmd_compact_tile_rows": (_ll, []),
     "kmd_compact": (_i, [_vp, _ll, _vp, _vp, _vp, _vp, _vp, _vp]),
     "kmd_assemble_chunk_tile_rows": (_ll, []),

@@ -16,7 +16,8 @@ the twin for a CPU tensor and the CUDA kernel for a CUDA tensor):
                           caller needs none), valid-row
                           count, and run lengths or (through the sort's
                           permutation) [U, 2] control/case sums of packed
-                          counts, in one pass
+                          counts (int32) or of raw u32 counts with sample
+                          ids (int64), in one pass
   K-CMP compact           mask (+ int64 payload) -> ascending set indices
                           (+ gathered payload)
   K-WRUN weighted_run_sums
@@ -147,10 +148,14 @@ def run_lengths_plain(starts: torch.Tensor, n_valid: torch.Tensor):
     return (_run_ends(starts, n_valid) - starts).to(torch.int32)
 
 
-def _unpack_ctrl(count: torch.Tensor):
+def _unpack_ctrl(count: torch.Tensor, sample=None, nb_controls: int = 0):
     """Packed counts -> (is_control, value) as int64, for both packings
-    (ops.merge_dev.build_triples_packed)."""
+    (ops.merge_dev.build_triples_packed); with sample ids, raw u32 counts
+    (int32) whose row is a control where its u16 sample id is below
+    nb_controls (ops.merge_dev.build_triples)."""
     c = count.to(torch.int64)
+    if sample is not None:
+        return (sample.to(torch.int64) & 0xFFFF) < nb_controls, c & _U32
     if count.dtype == torch.int16:
         u = c & 0xFFFF
         return (u & 0x8000) != 0, u & 0x7FFF
@@ -159,23 +164,27 @@ def _unpack_ctrl(count: torch.Tensor):
     raise TypeError(f"packed counts must be int16 or int32, got {count.dtype}")
 
 
-def run_group_sums_plain(starts, n_valid, perm, count):
-    ctrl, v = _unpack_ctrl(count[perm])
+def run_group_sums_plain(starts, n_valid, perm, count, sample=None,
+                         nb_controls: int = 0):
+    ctrl, v = _unpack_ctrl(count[perm], None if sample is None else sample[perm],
+                           nb_controls)
     ends = _run_ends(starts, n_valid)
     sums = []
     for col in (torch.where(ctrl, v, 0), torch.where(ctrl, 0, v)):
         cs = torch.zeros(col.numel() + 1, dtype=torch.int64, device=col.device)
         cs[1:] = torch.cumsum(col, 0)
         sums.append(cs[ends] - cs[starts])
-    return torch.stack(sums, 1).to(torch.int32)
+    sums = torch.stack(sums, 1)
+    return sums if sample is not None else sums.to(torch.int32)
 
 
 def run_encode_plain(keys_s, perm=None, count=None, lengths: bool = False,
-                     starts: bool = True):
+                     starts: bool = True, sample=None, nb_controls: int = 0):
     flags, n_valid = run_flags_plain(keys_s)
     run_starts, run_keys = compact_plain(flags, keys_s)
     if count is not None:
-        third = run_group_sums_plain(run_starts, n_valid, perm, count)
+        third = run_group_sums_plain(run_starts, n_valid, perm, count, sample,
+                                     nb_controls)
     elif lengths:
         third = run_lengths_plain(run_starts, n_valid)
     else:
@@ -184,8 +193,9 @@ def run_encode_plain(keys_s, perm=None, count=None, lengths: bool = False,
 
 
 #: kmd_run_encode's merge forms by packed-count dtype (0 is the dedup
-#: form, 1 the count form)
+#: form, 1 the count form, 4 the full form: raw counts with sample ids)
 _MERGE_FORMS = {torch.int16: 2, torch.int32: 3}
+_FULL_FORM = 4
 
 
 @functools.cache
@@ -195,7 +205,8 @@ def _run_tile_rows(form: int) -> int:
 
 def run_encode(keys_s: torch.Tensor, perm: torch.Tensor | None = None,
                count: torch.Tensor | None = None, lengths: bool = False,
-               starts: bool = True):
+               starts: bool = True, sample: torch.Tensor | None = None,
+               nb_controls: int = 0):
     """K-RUN: sorted keys [N] int64 (sentinel tail allowed) -> (starts [U]
     int64, the row where each run of equal non-sentinel keys starts, or
     None unless starts; run_keys [U] int64, its key; n_valid [1] int64, the
@@ -203,36 +214,48 @@ def run_encode(keys_s: torch.Tensor, perm: torch.Tensor | None = None,
     perm, the sort's permutation), [U, 2] int32 control and case sums of
     the packed counts of each run's rows (row r's count is count[perm[r]],
     int16 or int32 as merge_dev.build_triples_packed packs it); with
-    lengths, [U] int32 run lengths; else None.
+    sample ids too (the full form: [N] int16 holding u16, row r a control
+    where sample[perm[r]] < nb_controls), [U, 2] int64 sums of the raw u32
+    counts (int32, as merge_dev.build_triples builds them), exact at any
+    cohort mass; with lengths, [U] int32 run lengths; else None.
 
     One kernel, one memset and one host sync (U sizes the results): one
     allocation holds the outputs at N rows each and the kernel's scratch,
     and the results are views of it, which hold the whole allocation until
     all are freed."""
     if keys_s.device.type == "cpu":
-        return run_encode_plain(keys_s, perm, count, lengths, starts)
+        return run_encode_plain(keys_s, perm, count, lengths, starts, sample,
+                                nb_controls)
     kernels.require_cuda_tensor("run_encode keys", keys_s, torch.int64)
     N = keys_s.numel()
     if count is None:
         form = 1 if lengths else 0
     else:
-        if perm is None or count.dtype not in (torch.int16, torch.int32):
+        full = sample is not None
+        if perm is None or count.dtype not in ((torch.int32,) if full
+                                               else (torch.int16, torch.int32)):
             raise TypeError("run_encode: the merge form takes perm and int16 "
-                            f"or int32 packed counts, got {count.dtype}")
+                            "or int32 packed counts, the full form perm, raw "
+                            f"int32 counts and sample ids, got {count.dtype}")
         kernels.require_cuda_tensor("run_encode perm", perm, torch.int64)
         kernels.require_cuda_tensor("run_encode count", count, count.dtype)
-        if perm.numel() != N or count.numel() != N:
+        if full:
+            kernels.require_cuda_tensor("run_encode sample", sample, torch.int16)
+        if perm.numel() != N or count.numel() != N or (full and sample.numel() != N):
             raise ValueError(f"run_encode: {N} keys, {perm.numel()} perm, "
                              f"{count.numel()} counts")
-        form = _MERGE_FORMS[count.dtype]
+        form = _FULL_FORM if full else _MERGE_FORMS[count.dtype]
     n_tiles = -(-N // _run_tile_rows(form))
     # int64 words: [run keys: N][n_valid: 1][scratch: 1 + n_tiles]
-    # [starts: N, if asked for][lengths: N int32 | sums: N x 2 int32]
+    # [starts: N, if asked for][lengths: N int32 | sums: N x 2 int32 |
+    # full sums: N x 2 int64, from an even word (16-byte stores)]
     at = N + 2 + n_tiles
     third_at = at + N if starts else at
-    third_words = (0, (N + 1) // 2, N, N)[form]
-    buf = torch.empty(third_at + third_words, dtype=torch.int64,
-                      device=keys_s.device)
+    third_words = (0, (N + 1) // 2, N, N, 2 * N)[form]
+    buf = torch.empty(third_at + third_words + (form == _FULL_FORM),
+                      dtype=torch.int64, device=keys_s.device)
+    if form == _FULL_FORM and (buf.data_ptr() + 8 * third_at) % 16:
+        third_at += 1
     n_valid = buf[N : N + 1]
     U = 0
     if N:
@@ -241,6 +264,7 @@ def run_encode(keys_s: torch.Tensor, perm: torch.Tensor | None = None,
         with torch.cuda.device(keys_s.device):
             kernels.launch("run_bounds", "kmd_run_encode", keys_s.data_ptr(), N,
                            form, kernels.ptr(perm), kernels.ptr(count),
+                           kernels.ptr(sample), nb_controls,
                            base + 8 * at if starts else None, base,
                            base + 8 * third_at if third_words else None,
                            base + 8 * N, base + 8 * (N + 1),
@@ -251,6 +275,8 @@ def run_encode(keys_s: torch.Tensor, perm: torch.Tensor | None = None,
     third = None
     if form == 1:
         third = buf[third_at:].view(torch.int32)[:U]
+    elif form == _FULL_FORM:
+        third = buf[third_at : third_at + 2 * U].view(U, 2)
     elif form > 1:
         third = buf[third_at:].view(torch.int32)[: 2 * U].view(U, 2)
     return buf[at : at + U] if starts else None, buf[:U], n_valid, third

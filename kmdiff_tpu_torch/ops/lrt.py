@@ -51,8 +51,11 @@ class LrtParams:
         self.ratio_k = np.float32(self.sum_cases / tsum)
         self.p_threshold = p_threshold
         self.lr_min = lr_threshold_for_pvalue(p_threshold)
-        # group sums are int32 on the device: exact while the cohort's
-        # whole k-mer mass stays below 2^31
+        # a k-mer's group sum is bounded by the cohort's whole k-mer mass:
+        # below 2^31 the packed merge's int32 sums are exact; at or above
+        # it the merges take the full branch, whose group sums are int64
+        # (K-RUN's full form, K-LRT's int64 form), and prebuilt matrices
+        # are scored in int64 on the host
         self.wide_sums = tsum >= 2**31
 
 
@@ -75,10 +78,10 @@ def _lr_from_sums(s_c: torch.Tensor, s_k: torch.Tensor, ratio_c, ratio_k):
 
 
 def lrt_block(counts: torch.Tensor, nb_controls: int, ratio_c, ratio_k):
-    """counts [B, S] int32 (controls first) -> (lr [B] f32, s_c, s_k [B]
-    int32)."""
-    s_c = counts[:, :nb_controls].sum(dim=1, dtype=torch.int32)
-    s_k = counts[:, nb_controls:].sum(dim=1, dtype=torch.int32)
+    """counts [B, S] int32 or int64 (controls first) -> (lr [B] f32, s_c,
+    s_k [B] of the counts' type)."""
+    s_c = counts[:, :nb_controls].sum(dim=1, dtype=counts.dtype)
+    s_k = counts[:, nb_controls:].sum(dim=1, dtype=counts.dtype)
     return _lr_from_sums(s_c, s_k, ratio_c, ratio_k), s_c, s_k
 
 
@@ -86,9 +89,17 @@ def lrt_filter_block(counts: torch.Tensor, nb_controls: int, ratio_c, ratio_k,
                      lr_min):
     """LR plus the margin-backed keep mask:
         keep <=> lr + MARGIN_PER_COUNT*tot + MARGIN_ABS >= lr_min
-    returns (keep [B] bool, lr [B] f32, s_c [B] int32, s_k [B] int32)."""
+    returns (keep [B] bool, lr [B] f32, s_c [B], s_k [B]), the sums of the
+    counts' type. int32 counts take tot = f32(s_c + s_k), the JAX package's
+    matrix filter; int64 counts (the wide merge's [U, 2] group sums) take
+    tot = f32(s_c) + f32(s_k), its wide merge's (merge_dev.py:256-265),
+    whose f32(hi) * 65536 + f32(lo) is the correctly rounded f32 of each
+    sum while a half-sum stays below 2^24 (S <= 256)."""
     lr, s_c, s_k = lrt_block(counts, nb_controls, ratio_c, ratio_k)
-    tot = (s_c + s_k).to(torch.float32)
+    if counts.dtype == torch.int64:
+        tot = s_c.to(torch.float32) + s_k.to(torch.float32)
+    else:
+        tot = (s_c + s_k).to(torch.float32)
     cut = torch.tensor(np.float32(lr_min), device=lr.device)
     keep = lr + MARGIN_PER_COUNT * tot + MARGIN_ABS >= cut
     return keep, lr, s_c, s_k

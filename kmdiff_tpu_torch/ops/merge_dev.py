@@ -1,5 +1,5 @@
 """Partition merge + LRT on the device (port of kmdiff_tpu/ops/merge_dev.py:
-merge_lrt_local's narrow branches, packed and full).
+merge_lrt_local's packed branch and its full branch, wide sums included).
 
 The S sorted per-sample streams of one partition (or the two group streams
 after the host pre-sum) ship once as int64 keys plus one packed count per
@@ -16,8 +16,16 @@ count fits 15 bits) or in the sign bit (int32). On the device:
                                  (keep alone: the sums are K-RUN's)
   K-CMP compact                  survivors' keys and sums
 
-The full branch (popstrat, --save-sk) ships each row's sample id too, with
-int32 packed counts, and adds per-sample rows of the selected runs:
+The full branch (popstrat, --save-sk, and every cohort whose k-mer mass
+reaches 2^31) ships each row's raw u32 count and its sample id; a row is a
+control where its sample id is below nb_controls, as in the JAX package:
+
+  K-RUN run_encode (full form)   [U, 2] int64 control/case sums, exact at any
+                                 cohort mass
+  K-LRT lrt_filter (int64)       keep on the int64 sums, each rounded to f32
+                                 once
+
+and adds per-sample rows of the selected runs:
 
   K-ROWS run_rows                survivors' [H, S] count rows
   K-GENO geno_sample, K-CMP      the run starts whose k-mer hash falls below
@@ -40,12 +48,15 @@ _U32 = 0xFFFFFFFF
 _SAMPLE_SEED = 0x51ED2700
 
 
-def _merge_runs(keys, count, ratio_c, ratio_k, lr_min, starts: bool):
+def _merge_runs(keys, count, ratio_c, ratio_k, lr_min, starts: bool,
+                sample=None, nb_controls: int = 0):
     """The merge and test both branches share: sort, runs (their starts
-    only if asked for), group sums, K-LRT, survivors."""
+    only if asked for), group sums (int64 with sample ids), K-LRT,
+    survivors."""
     keys_s, perm = torch.sort(keys)
     starts, run_keys, n_valid, sums = run_encode(keys_s, perm, count,
-                                                 starts=starts)
+                                                 starts=starts, sample=sample,
+                                                 nb_controls=nb_controls)
     keep, _lr, _s_c, _s_k = lrt_filter(sums, 1, ratio_c, ratio_k, lr_min,
                                        want_lr=False, want_sums=False)
     hit, hit_keys = compact(keep, run_keys)
@@ -66,21 +77,23 @@ def merge_lrt(keys: torch.Tensor, count: torch.Tensor, ratio_c, ratio_k,
 
 
 def merge_lrt_full(keys: torch.Tensor, count: torch.Tensor,
-                   sample: torch.Tensor, nb_samples: int, ratio_c, ratio_k,
-                   lr_min, want_rows: bool, want_geno: bool, pca_thr=0,
-                   pca_seed: int = 0):
-    """One chunk's merged test with per-sample rows (merge_lrt_kernel with
-    want_rows / want_geno, packed_ctrl=False).
+                   sample: torch.Tensor, nb_samples: int, nb_controls: int,
+                   ratio_c, ratio_k, lr_min, want_rows: bool, want_geno: bool,
+                   pca_thr=0, pca_seed: int = 0):
+    """One chunk's merged test with sample ids (merge_lrt_kernel with
+    packed_ctrl=False: want_rows, want_geno, wide_sums).
 
-    keys [N] int64, count [N] int32 in the p32 packing and sample [N] int16
-    (u16 stream ids below nb_samples), as build_triples builds them.
-    Returns (n_distinct, hit_keys [H] int64 ascending, hit_sums [H, 2]
-    int32, hit_rows [H, S] int32 holding u32 or None, geno_rows [G, S]
-    uint8 or None): the survivors' count rows (want_rows) and the 0/1 rows
-    of the run starts sampled at pca_thr (pca_threshold_u32) under
-    pca_seed (want_geno), both in ascending key order."""
+    keys [N] int64, count [N] int32 holding raw u32 counts and sample [N]
+    int16 (u16 stream ids below nb_samples, those below nb_controls
+    controls), as build_triples builds them. Returns (n_distinct, hit_keys
+    [H] int64 ascending, hit_sums [H, 2] int64, hit_rows [H, S] int32
+    holding u32 or None, geno_rows [G, S] uint8 or None): the survivors'
+    count rows (want_rows) and the 0/1 rows of the run starts sampled at
+    pca_thr (pca_threshold_u32) under pca_seed (want_geno), both in
+    ascending key order."""
     perm, n_valid, starts, run_keys, sums, hit, hit_keys = _merge_runs(
-        keys, count, ratio_c, ratio_k, lr_min, starts=True)
+        keys, count, ratio_c, ratio_k, lr_min, starts=want_rows or want_geno,
+        sample=sample, nb_controls=nb_controls)
     rows = geno = None
     if want_rows:
         rows = run_rows(starts, n_valid, hit, perm, count, sample, nb_samples)
@@ -88,7 +101,7 @@ def merge_lrt_full(keys: torch.Tensor, count: torch.Tensor,
         sel, _ = compact(geno_sample(run_keys, pca_thr, pca_seed))
         geno = run_rows(starts, n_valid, sel, perm, count, sample, nb_samples,
                         presence=True)
-    return starts.numel(), hit_keys, sums[hit], rows, geno
+    return run_keys.numel(), hit_keys, sums[hit], rows, geno
 
 
 def pca_threshold_u32(rate: float) -> np.uint32:
@@ -148,20 +161,21 @@ def run_rows_plain(starts, n_valid, sel, perm, count, sample, nb_samples: int,
     first = torch.cumsum(lens, 0) - lens
     r = torch.arange(slot.numel(), device=sel.device) - first[slot] + b[slot]
     p = perm[r]
-    v = count[p].to(torch.int64) & 0x7FFFFFFF
+    v = count[p]
     s = sample[p].to(torch.int64) & 0xFFFF
     ok = s < nb_samples
     rows = torch.zeros((H, nb_samples), dtype=torch.int32, device=sel.device)
-    rows[slot[ok], s[ok]] = v[ok].to(torch.int32)
-    return (rows > 0).to(torch.uint8) if presence else rows
+    rows[slot[ok], s[ok]] = v[ok]
+    return (rows != 0).to(torch.uint8) if presence else rows
 
 
 def run_rows(starts: torch.Tensor, n_valid: torch.Tensor, sel: torch.Tensor,
              perm: torch.Tensor, count: torch.Tensor, sample: torch.Tensor,
              nb_samples: int, presence: bool = False) -> torch.Tensor:
     """K-ROWS: per selected run sel[h] (an index into starts), the
-    per-sample row of its counts -> [H, S] int32 (count & 0x7FFFFFFF of
-    the p32 packing), or with presence [H, S] uint8 (count > 0). Row r of
+    per-sample row of its counts -> [H, S] int32 holding the raw u32
+    counts (build_triples's), or with presence [H, S] uint8 (count != 0,
+    so that a count of 2^31 or more is present). Row r of
     the sorted order is count[perm[r]] of sample sample[perm[r]]; a run
     ends at the next start or at n_valid. Sample ids >= S are ignored.
     One launch a call, none for an empty selection; the kernel writes
@@ -223,15 +237,15 @@ def build_triples_packed(kmers_list: list[np.ndarray],
     return keys, count, N
 
 
-def build_triples(kmers_list: list[np.ndarray], counts_list: list[np.ndarray],
-                  nb_controls: int):
+def build_triples(kmers_list: list[np.ndarray], counts_list: list[np.ndarray]):
     """Host: per-stream sorted (kmers [n, 1] u64, counts [n] u32) -> (keys
-    [N] int64, counts [N] int32 in the p32 packing, sample ids [N] int16
-    holding u16, N), the full branch's operands (merge_lrt_full)."""
+    [N] int64, raw counts [N] int32 holding u32, sample ids [N] int16
+    holding u16, N), the full branch's operands (merge_lrt_full): no
+    control flag, which the merge reads from the sample id."""
     S = len(kmers_list)
     if S > 0xFFFF:
         raise ValueError(f"build_triples: {S} samples, at most 65535")
-    keys, count, N = build_triples_packed(kmers_list, counts_list, nb_controls)
+    keys, count, N = build_triples_packed(kmers_list, counts_list, 0)
     sample = np.repeat(np.arange(S, dtype=np.uint16),
                        [len(k) for k in kmers_list]).view(np.int16)
     return keys, count, sample, N

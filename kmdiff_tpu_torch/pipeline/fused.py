@@ -14,9 +14,10 @@ packed narrow merge and the full one, no group pre-aggregation).
               (torch.sort, K-RUN, K-LRT, K-CMP for the survivors) ->
               exact f64 rescore on the host -> survivors routed to their
               partition's accumulator by the count's partition hash.
-              Popstrat and --save-sk take the full merge: K-ASM writes each
-              row's sample id beside it (p32 counts) and the chunk goes
-              through merge_dev.merge_lrt_full (K-ROWS, K-GENO).
+              Popstrat, --save-sk and a cohort whose k-mer mass reaches
+              2^31 take the full merge: K-ASM writes each row's raw u32
+              count and its sample id beside it, and the chunk goes through
+              merge_dev.merge_lrt_full (int64 group sums; K-ROWS, K-GENO).
 
 Chunks arrive in ascending k-mer order, so every partition's accumulator
 receives its survivors in the same order as in count + diff, and the
@@ -150,7 +151,8 @@ _INT32_MIN = torch.iinfo(torch.int32).min
 
 def _pack(counts: torch.Tensor, is_control: bool, pack16: bool) -> torch.Tensor:
     """u32 counts (int32) -> packed counts with the control flag (the
-    packing of ops.merge_dev.build_triples_packed)."""
+    packing of ops.merge_dev.build_triples_packed); raw where is_control
+    is False and not pack16."""
     if pack16:
         return ((counts & 0xFFFF) | (0x8000 if is_control else 0)).to(torch.int16)
     return (counts | _INT32_MIN) if is_control else counts
@@ -158,13 +160,16 @@ def _pack(counts: torch.Tensor, is_control: bool, pack16: bool) -> torch.Tensor:
 
 def assemble_chunk_plain(keys_list, counts_list, starts, lens, nb_controls: int,
                          pack16: bool, with_sample: bool = False):
+    """ChunkTable.assemble's plain twin: with sample ids the counts are raw
+    (ops.merge_dev.build_triples's), whatever nb_controls."""
     key_parts, count_parts, sample_parts = [], [], []
     dev = keys_list[0].device
     for s, (keys, counts) in enumerate(zip(keys_list, counts_list)):
         a, n = int(starts[s]), int(lens[s])
         if n:
             key_parts.append(keys[a : a + n])
-            count_parts.append(_pack(counts[a : a + n], s < nb_controls, pack16))
+            count_parts.append(_pack(counts[a : a + n],
+                                     s < nb_controls and not with_sample, pack16))
             sample_parts.append(torch.full((n,), s, dtype=torch.int32,
                                            device=dev))
     if not key_parts:
@@ -234,7 +239,9 @@ class ChunkTable:
         """K-ASM: chunk c -> (keys [N] int64, counts [N] int16 (pack16:
         every count < 2^15, control flag in bit 15) or int32 (control flag
         in the sign bit)), and with_sample a third tensor, each row's stream
-        index as [N] int16 holding u16 (the full merge's sample ids)."""
+        index as [N] int16 holding u16 (the full merge's sample ids); the
+        counts are then raw u32 in int32 (K-ASM given no control streams),
+        as ops.merge_dev.build_triples builds them."""
         if self.dev.type == "cpu":
             return assemble_chunk_plain(self.keys_list, self.counts_list,
                                         self.starts[c], self.lens[c],
@@ -251,7 +258,8 @@ class ChunkTable:
                                self._table.data_ptr(),
                                self._starts_at + 8 * c * S,
                                self._offsets_at + 8 * c * (S + 1), S,
-                               self.nb_controls, N, 2 if pack16 else 4,
+                               0 if with_sample else self.nb_controls, N,
+                               2 if pack16 else 4,
                                keys.data_ptr(), count.data_ptr(),
                                kernels.ptr(sample))
         return (keys, count, sample) if with_sample else (keys, count)
@@ -335,14 +343,15 @@ def fused_merge(processor, accumulators, streams: list[ResidentStream],
     """Merge + test the resident streams in key-range chunks, each
     assembled on the device (K-ASM) and merged through
     processor.merge_device_chunk, the two-stage merge's own path. Streams
-    before processor.nb_controls are controls. When the processor wants
-    count rows (keep_counts, --save-sk) or geno rows (a sampler), the
-    chunks carry sample ids; the geno rows go to the sampler as partition
-    0's and the --save-sk rows to each partition's matrix (kmer_size) once
-    every chunk is merged.
+    before processor.nb_controls are controls. When the processor takes
+    the full merge (processor.full: count rows for keep_counts or --save-sk,
+    geno rows for a sampler, or wide sums), the chunks carry raw counts and
+    sample ids; the geno rows go to the sampler as partition 0's and the
+    --save-sk rows to each partition's matrix (kmer_size) once every chunk
+    is merged.
 
     Returns (total_kmers, nb_sign, sign_controls, sign_cases)."""
-    full = processor.want_rows or processor.sampler is not None
+    full = processor.full
     pack16 = (not full
               and max((s.max_count for s in streams), default=0) < 0x8000)
     starts, lens = plan_key_chunks(streams)
@@ -354,7 +363,7 @@ def fused_merge(processor, accumulators, streams: list[ResidentStream],
     t0 = time.perf_counter()
     for c in range(len(starts)):
         if full:
-            keys, count, sample = table.assemble(c, pack16, with_sample=True)
+            keys, count, sample = table.assemble(c, False, with_sample=True)
         else:
             (keys, count), sample = table.assemble(c, pack16), None
         res = processor.merge_device_chunk(

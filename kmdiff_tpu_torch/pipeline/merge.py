@@ -9,10 +9,13 @@ partition thread pool).
   Partitions above MAX_DEVICE_ROWS stream through in key-range chunks;
   each chunk is complete because every stream is sorted.
 * Popstrat and --save-sk need each survivor's per-sample counts, and
-  popstrat the sampled geno rows: the S streams then ship unsummed, with
-  each row's sample id, and merge through ops.merge_dev.merge_lrt_full.
+  popstrat the sampled geno rows; a cohort whose k-mer mass reaches 2^31
+  (LrtParams.wide_sums) needs group sums past int32. The S streams then
+  ship unsummed, as raw u32 counts with each row's sample id, and merge
+  through ops.merge_dev.merge_lrt_full, whose group sums are int64.
 * Prebuilt count matrices: [B, S] row blocks go through K-LRT
-  (ops.lrt.run_filter) in BLOCK_ROWS tiles.
+  (ops.lrt.run_filter) in BLOCK_ROWS tiles; a wide cohort's are scored on
+  the host, in int64 sums and f64, as the JAX package scores them.
 * Chunks already on the device (the fused run's key-range chunks,
   pipeline.fused) enter at PartitionProcessor.merge_device_chunk, where
   the count-file path's chunks end too.
@@ -20,8 +23,7 @@ partition thread pool).
 Either way the small survivor set is rescored in exact f64 on the host
 (core.model), which reproduces kmdiff's p-values.
 
-Not ported yet (NotImplementedError): custom models and cohorts whose k-mer
-mass reaches 2^31.
+Not ported yet (NotImplementedError): custom models.
 """
 
 from __future__ import annotations
@@ -102,27 +104,34 @@ class PartitionProcessor:
         self.phases = _Phases()
         self.params = LrtParams(nb_controls, nb_cases, model.sum_controls,
                                 model.sum_cases, threshold)
-        if self.params.wide_sums:
-            raise NotImplementedError(
-                "cohorts whose k-mer mass reaches 2^31 need the wide sums, "
-                "not ported yet (ROADMAP.md port queue item 3)"
-            )
+        # the full merge: per-sample streams with sample ids and raw counts,
+        # int64 group sums; no host group pre-sum, no packing
+        self.full = (self.want_rows or sampler is not None
+                     or self.params.wide_sums)
 
     # -- block scoring (matrix path) -----------------------------------------
 
     def _score_block(self, kmers: np.ndarray, counts: np.ndarray):
         """Score [B, S] rows through K-LRT in BLOCK_ROWS tiles, rescore the
         kept rows in f64; returns (survivor KmerSignBlock, survivor row
-        indices, control and case tallies)."""
-        keep = np.zeros(len(counts), dtype=bool)
-        s_c = np.zeros(len(counts), dtype=np.int64)
-        s_k = np.zeros(len(counts), dtype=np.int64)
-        for lo in range(0, len(counts), BLOCK_ROWS):
-            hi = min(len(counts), lo + BLOCK_ROWS)
-            k, sc, sk = run_filter(self.params, counts[lo:hi], self.device)
-            keep[lo:hi], s_c[lo:hi], s_k[lo:hi] = k, sc, sk
-        idx = np.nonzero(keep)[0]
-        p, sg, mc, mk = self.model.process_sums(s_c[idx], s_k[idx])
+        indices, control and case tallies). A wide cohort's rows, whose
+        group sums may pass int32, take exact int64 sums and f64 p-values
+        on the host, with no device (kmdiff_tpu/pipeline/merge.py:206-215)."""
+        if self.params.wide_sums:
+            idx = np.arange(len(counts))
+            s_c = counts[:, : self.nb_controls].sum(axis=1, dtype=np.int64)
+            s_k = counts[:, self.nb_controls :].sum(axis=1, dtype=np.int64)
+        else:
+            keep = np.zeros(len(counts), dtype=bool)
+            s_c = np.zeros(len(counts), dtype=np.int64)
+            s_k = np.zeros(len(counts), dtype=np.int64)
+            for lo in range(0, len(counts), BLOCK_ROWS):
+                hi = min(len(counts), lo + BLOCK_ROWS)
+                k, sc, sk = run_filter(self.params, counts[lo:hi], self.device)
+                keep[lo:hi], s_c[lo:hi], s_k[lo:hi] = k, sc, sk
+            idx = np.nonzero(keep)[0]
+            s_c, s_k = s_c[idx], s_k[idx]
+        p, sg, mc, mk = self.model.process_sums(s_c, s_k)
         final = p <= self.threshold
         idx = idx[final]
         block = KmerSignBlock(
@@ -222,12 +231,10 @@ class PartitionProcessor:
 
     def _process_device_merge(self, partition, kmers_list, counts_list,
                               acc, ksize: int = 0) -> PartitionResult:
-        """Pre-sum the groups on the host (unless rows or geno are wanted),
-        then merge on the device, in key-range chunks above
-        MAX_DEVICE_ROWS."""
+        """Pre-sum the groups on the host (unless the merge is full), then
+        merge on the device, in key-range chunks above MAX_DEVICE_ROWS."""
         nbc = self.nb_controls
-        full = self.want_rows or self.sampler is not None
-        if not full and 1 <= nbc < len(kmers_list) and len(kmers_list) > 2:
+        if not self.full and 1 <= nbc < len(kmers_list) and len(kmers_list) > 2:
             # the test reads only per-GROUP sums (model.hpp:145-146), so the
             # controls and the cases each merge into one stream first
             # (exact integer sums): the device then sorts ~2 rows per
@@ -283,9 +290,9 @@ class PartitionProcessor:
 
     def _device_merge_chunk(self, partition, kmers_list, counts_list, acc,
                             nbc, geno_sink, matrix_sink) -> PartitionResult:
-        """Pack one chunk's host streams into keys and packed counts (and
-        sample ids, for rows or geno), ship them and merge them on the
-        device."""
+        """Pack one chunk's host streams into keys and packed counts (the
+        full merge: raw counts and sample ids), ship them and merge them on
+        the device."""
         from kmdiff_tpu_torch.ops.merge_dev import (
             build_triples,
             build_triples_packed,
@@ -294,8 +301,8 @@ class PartitionProcessor:
 
         t0 = time.perf_counter()
         sample = None
-        if self.want_rows or self.sampler is not None:
-            keys, count, sample, _N = build_triples(kmers_list, counts_list, nbc)
+        if self.full:
+            keys, count, sample, _N = build_triples(kmers_list, counts_list)
             sample = torch.from_numpy(sample).to(self.device)
         else:
             keys, count, _N = build_triples_packed(
@@ -319,8 +326,9 @@ class PartitionProcessor:
         the host, push them to acc; the caller finishes acc. The count+diff
         merge and the fused run's merge both end here.
 
-        With sample ids [N] int16 (and p32 counts: merge_dev.build_triples)
-        the chunk merges through merge_dev.merge_lrt_full: survivors carry
+        With sample ids [N] int16 (and raw counts: merge_dev.build_triples)
+        the chunk merges through merge_dev.merge_lrt_full, whose group sums
+        are int64 (wide cohorts take this branch): survivors carry
         their count rows when keep_counts, their --save-sk rows go to
         matrix_sink and the sampled geno rows to geno_sink (new_sinks; the
         caller hands them on with flush_sinks)."""
@@ -341,7 +349,7 @@ class PartitionProcessor:
             sampler = self.sampler
             n_distinct, hit_keys, hit_sums, rows, geno = merge_lrt_full(
                 keys, count, sample, self.nb_controls + self.nb_cases,
-                self.params.ratio_c, self.params.ratio_k, self.params.lr_min,
+                self.nb_controls, self.params.ratio_c, self.params.ratio_k, self.params.lr_min,
                 want_rows=self.want_rows, want_geno=sampler is not None,
                 pca_thr=pca_threshold_u32(sampler.rate) if sampler else 0,
                 pca_seed=sampler.seed if sampler else 0,
@@ -386,7 +394,8 @@ class PartitionProcessor:
     @staticmethod
     def _unpack_blob(hit_keys: torch.Tensor, hit_sums: torch.Tensor):
         """Survivors on the device -> (kmers [H, 1] u64, s_c, s_k exact
-        int64) on the host."""
+        int64) on the host; the sums int32 (packed merge) or int64 (full
+        merge)."""
         sums = hit_sums.cpu().numpy().astype(np.int64)
         return keys_to_words(hit_keys.cpu().numpy()), sums[:, 0], sums[:, 1]
 

@@ -141,7 +141,7 @@ def wrapper_parts(dev, n: int = 2000) -> dict:
     codec.run_encode, each alone in a loop of n: a 2^24-row torch.empty
     (served by the caching allocator), one slice view, entering and leaving
     torch.cuda.device, one require_cuda_tensor check, the current stream's
-    raw handle, and a ctypes call of kmd_run_encode with its 12 arguments
+    raw handle, and a ctypes call of kmd_run_encode with its 14 arguments
     and N = 0 (it returns at once, no CUDA call)."""
     import ctypes
     import time
@@ -165,8 +165,8 @@ def wrapper_parts(dev, n: int = 2000) -> dict:
         "check": lambda: kernels.require_cuda_tensor("keys", buf, torch.int64),
         "stream_handle": lambda: torch._C._cuda_getCurrentRawStream(
             torch.cuda.current_device()),
-        "ctypes_call": lambda: entry(buf.data_ptr(), 0, 1, None, None, None,
-                                     buf.data_ptr(), None, buf.data_ptr(),
+        "ctypes_call": lambda: entry(buf.data_ptr(), 0, 1, None, None, None, 0,
+                                     None, buf.data_ptr(), None, buf.data_ptr(),
                                      buf.data_ptr(), ctypes.addressof(slot), None),
     }
     out = {}

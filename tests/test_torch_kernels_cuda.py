@@ -16,7 +16,11 @@ sample ids; K-GENO at four rates over keys with the top bit set and clear;
 K-ROWS with empty selections, runs at the end of the valid rows and sample
 ids past S, and on memory the allocator hands back filled with 0xFF (no
 memset), at S = 20 and 200 and for an empty selection (no launch); the
-full merge on the card against the CPU; K-GRAM at 0, 1 and ragged row
+full merge on the card against the CPU; the wide sums: K-RUN's full form
+(raw u32 counts with sample ids, int64 sums past 2^32) across tile edges
+and on offset views, K-LRT on int64 sums (the wide pairs form and a thread
+a row), K-ROWS on counts of 2^31 and 2^32 - 1, K-ASM given no control
+streams; K-GRAM at 0, 1 and ragged row
 counts and S from 1 to 200; K-IRLS with singular, separable and
 max-iteration items, F up to 64 and a design above 48 KB of shared memory,
 and each item's outputs bit-identical alone and among 1,023 others.
@@ -149,13 +153,15 @@ def test_canonical_kmers_misaligned_views(dev, k):
             _ext_check(view, k)
 
 
-def _check_runs(keys, perm=None, count=None, lengths=False, starts=True):
+def _check_runs(keys, perm=None, count=None, lengths=False, starts=True,
+                sample=None, nb_controls=0):
     """run_encode in one form against its plain twin on the same tensors,
     in one launch."""
     before = kernels.launch_counts()["run_bounds"]
-    got = codec.run_encode(keys, perm, count, lengths, starts)
+    got = codec.run_encode(keys, perm, count, lengths, starts, sample, nb_controls)
     assert kernels.launch_counts()["run_bounds"] == before + (1 if keys.numel() else 0)
-    want = codec.run_encode_plain(keys, perm, count, lengths, starts)
+    want = codec.run_encode_plain(keys, perm, count, lengths, starts, sample,
+                                  nb_controls)
     for g, w in zip(got, want):
         if w is None:
             assert g is None
@@ -419,6 +425,9 @@ def test_merge_lrt_cuda_matches_cpu(dev):
 
 def test_wrappers_refuse_cpu_only_layouts(dev):
     with pytest.raises(TypeError):
+        lrt_filter(torch.zeros((4, 2), dtype=torch.int16, device=dev), 1, 0.5, 0.5, 1.0)
+    # int64 sums (the wide merge's) take keep alone
+    with pytest.raises(ValueError, match="keep alone"):
         lrt_filter(torch.zeros((4, 2), dtype=torch.int64, device=dev), 1, 0.5, 0.5, 1.0)
     with pytest.raises(ValueError):
         codec.compact(torch.ones(4, dtype=torch.bool, device=dev),
@@ -429,6 +438,15 @@ def test_wrappers_refuse_cpu_only_layouts(dev):
     with pytest.raises(TypeError):
         codec.run_encode(keys, torch.arange(4, device=dev),
                          torch.zeros(4, dtype=torch.int64, device=dev))
+    # the full form takes raw int32 counts and sample ids on the card
+    with pytest.raises(TypeError):
+        codec.run_encode(keys, torch.arange(4, device=dev),
+                         torch.zeros(4, dtype=torch.int16, device=dev),
+                         sample=torch.zeros(4, dtype=torch.int16, device=dev))
+    with pytest.raises(ValueError):
+        codec.run_encode(keys, torch.arange(4, device=dev),
+                         torch.zeros(4, dtype=torch.int32, device=dev),
+                         sample=torch.zeros(4, dtype=torch.int16))
 
 
 def _streams(rng, S, dev, top):
@@ -814,9 +832,9 @@ def test_merge_lrt_full_cuda_matches_cpu(dev):
         c = rng.integers(1, 300, 10_000, dtype=np.uint32)
         c[:1000] *= 1 + 30 * (s < 3)
         counts.append(c)
-    keys, count, sample, _ = merge_dev.build_triples(kmers, counts, 3)
+    keys, count, sample, _ = merge_dev.build_triples(kmers, counts)
     thr = merge_dev.pca_threshold_u32(0.05)
-    args = (6, 0.45, 0.55, 3.0, True, True, thr, 5)
+    args = (6, 3, 0.45, 0.55, 3.0, True, True, thr, 5)
     gpu = merge_dev.merge_lrt_full(torch.from_numpy(keys).to(dev),
                                    torch.from_numpy(count).to(dev),
                                    torch.from_numpy(sample).to(dev), *args)
@@ -825,6 +843,131 @@ def test_merge_lrt_full_cuda_matches_cpu(dev):
     assert gpu[0] == cpu[0] and gpu[1].numel() > 0 and gpu[4].shape[0] > 0
     for g, c in zip(gpu[1:], cpu[1:]):
         _eq(g, c)
+
+
+def _full_inputs(rng, S, dev, n_pool=12_000, per=4000):
+    """S sorted distinct streams of one pool merged as the full merge sees
+    them: keys sorted with their permutation, raw u32 counts (int32) of
+    which a tenth lie in [2^31, 2^32), sample ids as u16."""
+    pool = np.unique(rng.integers(-(2**62), 2**62, n_pool))
+    parts = [np.sort(rng.choice(pool, min(per, len(pool)), replace=False))
+             for _ in range(S)]
+    raw = rng.integers(1, 300, sum(len(p) for p in parts), dtype=np.int64)
+    raw[::10] = rng.integers(2**31, 2**32, len(raw[::10]))
+    sample = np.repeat(np.arange(S), [len(p) for p in parts]).astype(np.int16)
+    keys, perm = torch.sort(torch.from_numpy(np.concatenate(parts)).to(dev))
+    count = torch.from_numpy(raw.astype(np.uint32).view(np.int32)).to(dev)
+    return keys, perm, count, torch.from_numpy(sample).to(dev), raw
+
+
+@pytest.mark.parametrize("S", [1, 2, 20, 300])
+def test_run_encode_full_form(dev, S):
+    """K-RUN's full form at S = 1 to 300 (runs across tile edges, longer than
+    a warp at 300), nb_controls 0, S // 2 and S, with and without starts:
+    int64 sums of raw counts past 2^32, equal to the twin's and to numpy's."""
+    rng = np.random.default_rng(S + 90)
+    keys, perm, count, sample, raw = _full_inputs(rng, S, dev)
+    for nbc in sorted({0, S // 2, S}):
+        for starts in (True, False):
+            got = _check_runs(keys, perm, count, starts=starts, sample=sample,
+                              nb_controls=nbc)
+        sums = got[3]
+        assert sums.dtype == torch.int64 and sums.shape == (got[1].numel(), 2)
+        run_of = np.searchsorted(got[1].cpu().numpy(), keys.cpu().numpy())
+        p = perm.cpu().numpy()
+        ctrl = sample.cpu().numpy()[p] < nbc
+        want = np.zeros((got[1].numel(), 2), np.int64)
+        np.add.at(want, (run_of, np.where(ctrl, 0, 1)), raw[p])
+        np.testing.assert_array_equal(sums.cpu().numpy(), want)
+    if S >= 20:
+        assert int(sums.max()) >= 2**32
+
+
+def test_run_encode_full_form_views_and_edges(dev):
+    """The full form on keys at an 8-byte offset of their allocation, at N
+    around one tile, and one key repeated across many tiles."""
+    tile = kernels.lib().kmd_run_encode_tile_rows(4)
+    assert tile == kernels.lib().kmd_run_encode_tile_rows(2)
+    rng = np.random.default_rng(91)
+    for n in (1, tile - 1, tile, tile + 1, 5 * tile + 3):
+        for run_len in (1, 20, tile + 3):
+            keys = _sorted(np.arange(n) // run_len, dev)
+            base = torch.cat([keys[:1], keys])
+            view = base[1:]
+            assert view.data_ptr() % 16 == 8
+            perm = torch.from_numpy(rng.permutation(n)).to(dev)
+            count = torch.from_numpy(rng.integers(-(2**31), 2**31, n)
+                                     .astype(np.int32)).to(dev)
+            sample = torch.from_numpy(rng.integers(0, 5, n).astype(np.int16)).to(dev)
+            for k in (keys, view):
+                _check_runs(k, perm, count, sample=sample, nb_controls=2)
+
+
+@pytest.mark.parametrize("B", [0, 1, 7, 8, 9, 4099])
+def test_lrt_filter_int64(dev, B):
+    """K-LRT on int64 [B, 2] sums up to 2^40 (the wide pairs form on fresh
+    tensors, a thread a row on views at an 8-byte offset) and on [B, 5]
+    int64 counts, nb_controls 0 to S: keep equal to the twin's, one launch
+    a call, and no other output."""
+    rng = np.random.default_rng(B + 95)
+    for S in (2, 5):
+        flat = torch.from_numpy(rng.integers(0, 2**40, B * S + 1)).to(dev)
+        flat[::3] = torch.from_numpy(rng.integers(0, 300, len(flat[::3]))).to(dev)
+        if S == 2:  # near the cut: sums in the cohort's ratio, LR ~ 0
+            t = rng.integers(1, 2**40, len(range(0, 2 * B, 4)))
+            flat[0 : 2 * B : 4] = torch.from_numpy((0.45 * t).astype(np.int64)).to(dev)
+            flat[1 : 2 * B : 4] = torch.from_numpy(t - (0.45 * t).astype(np.int64)).to(dev)
+        for lead in (0, 1):
+            view = flat[lead : lead + B * S].view(B, S)
+            for nbc in sorted({0, 1, S // 2, S}):
+                args = (nbc, 0.45, 0.55, 5.0)
+                before = kernels.launch_counts()["lrt_filter"]
+                keep, lr, s_c, s_k = lrt_filter(view, *args, want_lr=False,
+                                                want_sums=False)
+                assert kernels.launch_counts()["lrt_filter"] == before + (1 if B else 0)
+                assert lr is None and s_c is None and s_k is None
+                _eq(keep, lrt_filter_plain(view, *args)[0])
+    with pytest.raises(ValueError, match="keep alone"):
+        lrt_filter(flat[: 2 * B].view(B, 2), 1, 0.45, 0.55, 5.0)
+
+
+def test_run_rows_raw_counts(dev):
+    """K-ROWS on raw counts of 2^31 and 2^32 - 1 (negative as int32): the
+    count rows hold them as they are and the presence rows mark them."""
+    rng = np.random.default_rng(97)
+    keys, perm, count, sample, raw = _full_inputs(rng, 20, dev)
+    count[::7] = torch.iinfo(torch.int32).min  # 2^31
+    count[3::7] = -1                           # 2^32 - 1
+    starts, _k, n_valid, _ = codec.run_encode(keys)
+    sel = torch.arange(starts.numel(), device=dev)
+    rows = merge_dev.run_rows(starts, n_valid, sel, perm, count, sample, 20)
+    _eq(rows, merge_dev.run_rows_plain(starts, n_valid, sel, perm, count, sample, 20))
+    u = rows.cpu().numpy().view(np.uint32)
+    assert (u == 2**31).any() and (u == 2**32 - 1).any()
+    pres = merge_dev.run_rows(starts, n_valid, sel, perm, count, sample, 20,
+                              presence=True)
+    _eq(pres, merge_dev.run_rows_plain(starts, n_valid, sel, perm, count, sample, 20,
+                                       presence=True))
+    np.testing.assert_array_equal(pres.cpu().numpy(), (u != 0).astype(np.uint8))
+
+
+@pytest.mark.parametrize("S", [2, 20])
+def test_assemble_chunk_with_sample_ids_has_raw_counts(dev, S):
+    """K-ASM with sample ids is given no control streams: its counts are the
+    streams' raw u32 counts, 2^31 and above included, whatever nb_controls."""
+    rng = np.random.default_rng(S + 98)
+    keys, counts = _streams(rng, S, dev, 2**32)
+    Us = np.array([k.numel() for k in keys])
+    starts, lens = np.zeros(S, np.int64), Us.copy()
+    for nbc in (0, S // 2, S):
+        got = fused.ChunkTable(keys, counts, starts, lens, nbc).assemble(
+            0, False, with_sample=True)
+        want = fused.assemble_chunk_plain(keys, counts, starts, lens, nbc, False,
+                                          with_sample=True)
+        for g, w in zip(got, want):
+            _eq(g, w)
+        _eq(got[1], torch.cat(counts))
+    assert int((got[1] < 0).sum()) > 0
 
 
 @pytest.mark.parametrize("B,S", [(0, 4), (1, 1), (31, 20), (33, 20), (70_001, 20),

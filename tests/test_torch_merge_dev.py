@@ -144,8 +144,23 @@ def test_processor_rejects_unported_models():
 
     with pytest.raises(NotImplementedError, match="plugins"):
         tmerge.PartitionProcessor(object(), 1, 1, 0.1, CPU)
-    wide = TPoissonLikelihood(1, 1, [2**31], [1])
-    with pytest.raises(NotImplementedError, match="wide sums"):
-        tmerge.PartitionProcessor(wide, 1, 1, 0.1, CPU)
+    # a cohort whose k-mer mass reaches 2^31 is built and merges (the wide
+    # sums), as the JAX processor merges it
+    totals = ([2**31], [1])
+    wide = tmerge.PartitionProcessor(TPoissonLikelihood(1, 1, *totals), 1, 1,
+                                     0.5, CPU)
+    assert wide.params.wide_sums and wide.full
+    kmers = [np.array([[3], [9]], np.uint64), np.array([[9]], np.uint64)]
+    counts = [np.array([2**31 + 7, 4], np.uint32), np.array([1], np.uint32)]
+    acc, ref_acc = VectorAccumulator(), VectorAccumulator()
+    res = wide._process_device_merge(0, kmers, counts, acc)
+    ref = JaxProcessor(PoissonLikelihood(1, 1, *totals), 1, 1, 0.5
+                       )._process_device_merge(0, kmers, counts, ref_acc, 31)
+    assert res.total_kmers == ref.total_kmers == 2
+    assert (res.nb_sign, res.sign_controls) == (ref.nb_sign, ref.sign_controls)
+    if ref.nb_sign:
+        got, want = _blocks(acc), _blocks(ref_acc)
+        np.testing.assert_array_equal(got.kmers, want.kmers)
+        np.testing.assert_array_equal(got.pvalues, want.pvalues)
     # subclasses of the Poisson model keep the device path
     assert tmerge.PartitionProcessor(Custom(1, 1, [5], [5]), 1, 1, 0.1, CPU)

@@ -81,12 +81,15 @@ def test_merge_lrt_full_matches_jax(S, nbc):
     nh, ng = int(out["n_hits"]), int(out["n_geno"])
     blob = np.asarray(out["hit_blob"])[:nh]
 
-    keys, pcount, psample, n = merge_dev.build_triples(kmers, counts, nbc)
+    keys, pcount, psample, n = merge_dev.build_triples(kmers, counts)
     assert n == N and pcount.dtype == np.int32 and psample.dtype == np.int16
+    # raw counts, as the JAX package's full branch ships them
+    np.testing.assert_array_equal(pcount, count[:N])
     nd, hit_keys, hit_sums, rows, geno = merge_dev.merge_lrt_full(
         torch.from_numpy(keys), torch.from_numpy(pcount),
-        torch.from_numpy(psample), S, ratio_c, ratio_k, lr_min, True, True,
+        torch.from_numpy(psample), S, nbc, ratio_c, ratio_k, lr_min, True, True,
         thr, seed)
+    assert hit_sums.dtype == torch.int64
     assert nd == int(out["n_distinct"])
     assert 0 < nh == len(hit_keys) and 0 < ng == len(geno)
     np.testing.assert_array_equal(codec.keys_to_words(hit_keys.numpy()),
@@ -98,7 +101,8 @@ def test_merge_lrt_full_matches_jax(S, nbc):
     pk, pc, _ = merge_dev.build_triples_packed(kmers, counts, nbc)
     nd2, hk2, hs2 = merge_dev.merge_lrt(torch.from_numpy(pk), torch.from_numpy(pc),
                                         ratio_c, ratio_k, lr_min)
-    assert nd2 == nd and torch.equal(hk2, hit_keys) and torch.equal(hs2, hit_sums)
+    assert nd2 == nd and torch.equal(hk2, hit_keys)
+    assert torch.equal(hs2.to(torch.int64), hit_sums)
 
 
 def test_run_rows_twin_edge_cases():
@@ -108,6 +112,7 @@ def test_run_rows_twin_edge_cases():
     starts = torch.tensor([0, 3, 4])
     n_valid = torch.tensor([6])
     perm = torch.tensor([2, 0, 1, 3, 5, 4])
+    # raw u32 counts in int32: 2^31 + 16 is negative there and present
     count = torch.tensor([3, -0x7FFFFFF0, 0, 7, 1, 2], dtype=torch.int32)
     sample = torch.tensor([0, 1, 2, 1, 0, 9], dtype=torch.int16)
     assert keys.numel() == perm.numel()
@@ -116,7 +121,8 @@ def test_run_rows_twin_edge_cases():
     assert none.shape == (0, 3) and none.dtype == torch.int32
     rows = merge_dev.run_rows(starts, n_valid, torch.tensor([0, 2]), perm, count,
                               sample, 3)
-    assert rows.tolist() == [[3, 0x10, 0], [1, 0, 0]]
+    assert rows.tolist() == [[3, -0x7FFFFFF0, 0], [1, 0, 0]]
+    assert rows.numpy().view(np.uint32)[0, 1] == 2**31 + 16
     pres = merge_dev.run_rows(starts, n_valid, torch.tensor([0, 1, 2]), perm,
                               count, sample, 3, presence=True)
     assert pres.dtype == torch.uint8
