@@ -44,12 +44,23 @@ Run from the root of a checkout, with no arguments:
    0.05, K-ROWS for ~13,700 survivors and ~12,000 sampled starts of 2^23
    sorted rows from 20 streams (raw counts, every 16th from 2^31 to 2^32,
    which the count rows must hold), each with its device time (20 queued
-   launches) and its one device operation a call (torch.profiler), K-GRAM
-   on [2^20, 20] and [2^18, 200] 0/1 blocks, K-IRLS on 2^14 conditioned alt
+   launches) and its one device operation a call (torch.profiler), K-GENO's
+   device time (20 queued launches), K-GRAM on [2^20, 20] and [2^18, 200]
+   0/1 blocks beside torch._int_mm (the same blocks as int8, S padded to a
+   multiple of 8, held equal to K-GRAM's Gram), K-IRLS on 2^14 conditioned alt
    designs at n = 20, F = 5 and n = 200, F = 12 (one singular item, one
    separable) and on their first 1,024 (popstrat's launch size), alone
    bit-identical to the same fits among 2^14, each with its device time
-   (20 queued launches). Integers, masks and
+   (20 queued launches); and the multi-word forms (k > 32, [nw, N]
+   word-major keys): K-EXT at 2^24 codes for k = 63 and 128, K-RUN's count
+   form without starts on 2^23 two-word keys (the first 2^20 rows sharing
+   512 leading words, eight runs of 2*10^4 copies, a 5,000-row sentinel
+   tail) beside torch.unique_consecutive(dim=0) on the [N, 2] rows, with its
+   dedup and count-with-starts forms checked too, K-ASM on 20 two-word
+   streams (p16, and raw counts with sample ids), K-GENO on 2^23 two-word
+   keys as a view of a wider buffer, each with its device time (20 queued
+   launches; K-RUN's from torch.profiler, as its call waits for its count).
+   Integers, masks and
    statistics must be equal; lr within rtol 1e-6 and atol 1e-6;
    K-IRLS with an f64 refit as witness: iteration counts equal on 97% of
    the items, and on the fits the witness finds at a maximum the stop
@@ -80,8 +91,10 @@ Run from the root of a checkout, with no arguments:
    and the --save-sk matrices byte-identical, the FASTA the same k-mers
    with p-values within 1% relative, but for at most KNIFE_EDGES_MAX
    quasi-separated fits that f32 IRLS drove to p = 1 on one side, split
-   between the sides, which an f64 refit of every alt model judges: the
-   kernel's significant set no further from the f64 one than its twin's;
+   between the sides, which an f64 refit of every alt model judges
+   (check_popstrat_fasta: the splits are counted in distinct alt designs,
+   from SPLIT_MIN_DESIGNS up), the kernel's significant set no further from
+   the f64 one than its twin's;
    (b) `run` with the same flags on CUDA,
    served by the fused path with K-ASM: FASTA and pcs.evec byte-identical
    to (a)'s CUDA output, the .geno the same multiset of rows.
@@ -103,6 +116,15 @@ Run from the root of a checkout, with no arguments:
    LrtParams.wide_sums forced true in this process only, served by the
    fused path with K-ASM and the full-form K-RUN, its FASTA byte-identical
    to phase 3's loose `diff`.
+7. k > 32 on phase 3's cohort at its full size. k = 63 (two words, 31
+   bases in the second): `count` and `diff` (defaults, and the loose cut,
+   which must keep k-mers) on CUDA, then both diffs on the CPU and sample
+   0 recounted on the CPU, byte-identical; the fused `run` (a), served by
+   the fused path, its FASTA, count files and histograms byte-identical to
+   count + diff's; popstrat `diff --save-sk` on CUDA and the CPU under
+   phase 5's rules. k = 128 (four words): `count` and `diff` as at k = 63.
+   Launch counts reset before each part; each must launch the multi-word
+   forms of its kernels and no one-word K-EXT, K-RUN, K-ASM or K-GENO.
 
 Then it prints every kernel's launches on each path, and fails if any
 module of JAX or of the JAX package (kmdiff_tpu) was loaded.
@@ -132,7 +154,13 @@ index_plain_ms, index_bound_ms, index_bound_by and index_library_ms
 (torch.nonzero); run_rows' and irls' rows carry device_ms (run_rows' also
 device_ops) and their other shapes' rows under "shapes" (run_rows: the
 sampled presence rows; irls: n = 20 at 1,024 items, n = 200 at 2^14 and
-1,024); the last line of standard output is the result:
+1,024); the multi-word forms have rows of their own (canonical_kmers_mw,
+run_bounds_mw, assemble_chunk_mw, geno_sample_mw: source the one-word
+form's, launches on phase 7's k = 63 paths, device_ms; canonical_kmers_mw
+carries k = 128 as k128_*, assemble_chunk_mw the full merge's raw counts
+with sample ids as full_*; run_bounds_mw is the count form, beside
+torch.unique_consecutive(dim=0)); int_gram's library_ms is torch._int_mm;
+the last line of standard output is the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -434,7 +462,205 @@ def compare_kernels(dev) -> dict:
     out["run_rows"] = compare_rows(dev, rng)
     out["int_gram"] = compare_gram(dev, rng)
     out["irls"] = compare_irls(dev, rng)
+    out["canonical_kmers_mw"] = compare_ext_mw(dev, rng)
+    out["run_bounds_mw"] = compare_runs_mw(dev, rng)
+    out["assemble_chunk_mw"] = compare_assemble_mw(dev)
+    out["geno_sample_mw"] = compare_geno_mw(dev, rng)
     return out
+
+
+def compare_ext_mw(dev, rng):
+    """K-EXT's multi-word form at 2^24 codes (INVALID every 151 bytes) for k
+    = 63 (two words, 31 bases in the second) and 128 (four full words):
+    whole calls and device time (20 launches behind a sleep kernel) against
+    the bound. Returns the k = 63 row with the k = 128 one in k128_*."""
+    import numpy as np
+    import torch
+
+    from kmdiff_tpu_torch.ops import codec
+
+    res = {}
+    n = 1 << 24
+    for k in (63, 128):
+        codes_np = rng.integers(0, 4, n).astype(np.uint8)
+        codes_np[150::151] = codec.INVALID
+        codes = torch.from_numpy(codes_np).to(dev)
+        keys = codec.canonical_kmers(codes, k)
+        check_equal(f"canonical_kmers multi-word {n} codes k={k}", keys,
+                    codec.canonical_kmers_mw_plain(codes, k))
+        ms = median_ms(lambda: codec.canonical_kmers(codes, k))
+        dev_ms = events_ms(lambda: codec.canonical_kmers(codes, k))
+        plain = median_ms(lambda: codec.canonical_kmers_mw_plain(codes, k),
+                          reps=3, warmup=1)
+        nw, w = keys.shape
+        # a code in, nw key words out; what a window needs at least: a
+        # rolling update of 2 nw words (a shift, an or and the carry into
+        # the next word, ~4 operations a word), the lexicographic min (~2 a
+        # word) and the validity test: ~12 nw + 8 integer operations
+        r = row(ms, plain, 0.0, n + 8 * nw * w, (12 * nw + 8) * w, device_ms=dev_ms)
+        print(f"[K-EXT mw] canonical_kmers {n} codes k={k} ({nw} words): kernel "
+              f"{ms:.4f} ms (device {dev_ms:.4f} ms over 20 queued launches), "
+              f"plain {plain:.4f} ms; {share(r)}, {r['bound_ms'] / dev_ms:.1%} of "
+              f"it over the device time; library: none (no one call)")
+        res[k] = r
+    out = res[63]
+    out.update({f"k128_{key}": res[128][key] for key in
+                ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by")})
+    return out
+
+
+def mw_run_inputs(dev, rng, nw: int = 2):
+    """K-RUN multi-word form's phase-2 input: 2^23 sorted two-word keys
+    (random k-mers, the first 2^20 rows sharing 512 leading words, eight
+    runs of 2*10^4 copies, a 5,000-row sentinel tail), sorted on the card
+    with codec.sort_rows."""
+    import numpy as np
+    import torch
+
+    from kmdiff_tpu_torch.ops import codec
+
+    n = 1 << 23
+    raw = rng.integers(-(2**62), 2**62, (nw, n), dtype=np.int64)
+    raw[0, : 1 << 20] = raw[0, np.arange(1 << 20) % 512]
+    raw[:, : 8 * 20_000] = np.repeat(raw[:, :8], 20_000, axis=1)
+    raw[:, -5000:] = codec.SENTINEL
+    return codec.sort_rows(torch.from_numpy(raw).to(dev))[0]
+
+
+def compare_runs_mw(dev, rng):
+    """K-RUN's multi-word form: the count form on 2^23 two-word keys
+    (mw_run_inputs), without starts as sort_rle calls it, against its twin
+    and torch.unique_consecutive(dim=0, return_counts=True) on the [N, 2]
+    rows; every form checked on the same keys. Whole call, device time
+    (torch.profiler: the call waits for its count), bound and the library
+    call."""
+    import torch
+
+    from kmdiff_tpu_torch.ops import codec
+
+    keys_s = mw_run_inputs(dev, rng)
+    nw, n = keys_s.shape
+    args = dict(lengths=True, starts=False)
+    got = codec.run_encode(keys_s, **args)
+    want = codec.run_encode_plain(keys_s, **args)
+    for name, g, w in zip(("run keys", "n_valid", "lengths"), got[1:], want[1:]):
+        check_equal(f"run_encode multi-word count form {name}", g, w)
+    for label, kw in (("dedup", {}), ("count with starts", {"lengths": True})):
+        for name, g, w in zip(("starts", "run keys", "n_valid", "third"),
+                              codec.run_encode(keys_s, **kw),
+                              codec.run_encode_plain(keys_s, **kw)):
+            if (g is None) != (w is None):
+                raise AssertionError(f"run_encode multi-word {label}: {name}")
+            if w is not None:
+                check_equal(f"run_encode multi-word {label} {name}", g, w)
+    _s, run_keys, n_valid, lengths = got
+    rows = keys_s[:, : int(n_valid)].t().contiguous()
+    lib_keys, lib_counts = torch.unique_consecutive(rows, dim=0, return_counts=True)
+    check_equal("unique_consecutive(dim=0) keys", lib_keys.t(), run_keys)
+    check_equal("unique_consecutive(dim=0) counts", lib_counts, lengths.long())
+    call = lambda: codec.run_encode(keys_s, **args)  # noqa: E731
+    ms, dev_ms = median_ms(call), device_work(call)[0]
+    plain = median_ms(lambda: codec.run_encode_plain(keys_s, **args))
+    lib_call = lambda: torch.unique_consecutive(rows, dim=0, return_counts=True)  # noqa: E731
+    lib, lib_dev = median_ms(lib_call, reps=5, warmup=1), device_work(lib_call, reps=3)[0]
+    U = run_keys.shape[1]
+    # the keys in; nw words and a length a run and n_valid out; nw
+    # compares a row
+    r = row(ms, plain, 0.0, 8 * nw * n + (8 * nw + 4) * U + 8, nw * n,
+            library=lib, device_ms=dev_ms, form="count")
+    print(f"[K-RUN mw] run_encode count form without starts, 2^23 two-word keys -> "
+          f"{U} runs (longest {int(lengths.max())}): kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f} ms), plain {plain:.4f} ms, library "
+          f"torch.unique_consecutive(dim=0) {lib:.4f} ms (device {lib_dev:.4f} ms); "
+          f"{share(r)}, {r['bound_ms'] / dev_ms:.1%} of it over the device time")
+    return r
+
+
+def _random_streams_mw(dev, S, U, seed, top, nw=2):
+    """S sorted distinct [nw, U] key streams from one pool (rows sorted
+    lexicographically), with u32 counts (int32) below top."""
+    import torch
+
+    from kmdiff_tpu_torch.ops import codec
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pool = torch.randint(-(2**62), 2**62, (nw, 3 * U), generator=gen, device=dev)
+    keys, counts = [], []
+    for _ in range(S):
+        pick = torch.randperm(pool.shape[1], generator=gen, device=dev)[:U]
+        keys.append(codec.sort_rows(pool[:, pick])[0].contiguous())
+        counts.append(torch.randint(1, top, (U,), generator=gen, device=dev,
+                                    dtype=torch.int64).to(torch.int32))
+    return keys, counts
+
+
+def compare_assemble_mw(dev):
+    """K-ASM's multi-word form at the merge's shape (assemble_plan) on 20
+    two-word streams, p16 (the run's narrow merge) and raw counts with
+    sample ids (the full merge): a chunk's whole call and device time (20
+    queued launches) against the bound. Returns the p16 row with the full
+    form's in full_*."""
+    from kmdiff_tpu_torch.pipeline.fused import ChunkTable, assemble_chunk_plain
+
+    S, U, starts, lens = assemble_plan()
+    res = {}
+    for name, pack16, top, ids in (("p16", True, 1 << 15, False),
+                                   ("raw + sample ids", False, 1 << 32, True)):
+        keys, counts = _random_streams_mw(dev, S, U, 3, top)
+        table = ChunkTable(keys, counts, starts, lens, N_CONTROLS)
+        got = table.assemble(0, pack16, ids)
+        want = assemble_chunk_plain(keys, counts, starts, lens, N_CONTROLS, pack16, ids)
+        for part, g, w in zip(("keys", "counts", "sample ids"), got, want):
+            check_equal(f"assemble_chunk multi-word {name} {part}", g, w)
+        ms = median_ms(lambda: table.assemble(0, pack16, ids))
+        dev_ms = events_ms(lambda: table.assemble(0, pack16, ids))
+        plain = median_ms(lambda: assemble_chunk_plain(keys, counts, starts, lens,
+                                                       N_CONTROLS, pack16, ids))
+        rows = int(lens.sum())
+        # each row's two key words and u32 count in; its two words, packed
+        # count and (full mode) sample id out
+        res[name] = row(ms, plain, 0.0,
+                        rows * (20 + 16 + (2 if pack16 else 4) + (2 if ids else 0)),
+                        rows, device_ms=dev_ms)
+        print(f"[K-ASM mw] assemble_chunk {S} two-word streams -> {rows} rows "
+              f"({name}): kernel {ms:.4f} ms (device {dev_ms:.4f} ms over 20 "
+              f"queued launches), plain {plain:.4f} ms; {share(res[name])}, "
+              f"{res[name]['bound_ms'] / dev_ms:.1%} of it over the device time; "
+              f"library: none (no one call)")
+    out = res["p16"]
+    out.update({f"full_{key}": res["raw + sample ids"][key] for key in
+                ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by")})
+    return out
+
+
+def compare_geno_mw(dev, rng):
+    """K-GENO's multi-word form on 2^23 two-word run keys at the default
+    kmer_pca, as a [:, :U] view of a wider buffer (K-RUN's run keys):
+    whole call, device time (20 queued launches), bound."""
+    import numpy as np
+    import torch
+
+    from kmdiff_tpu_torch.ops import merge_dev
+
+    n = 1 << 23
+    buf = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, (2, n + 4096),
+                                        dtype=np.int64)).to(dev)
+    keys = buf[:, :n]
+    thr = merge_dev.pca_threshold_u32(0.001)
+    mask = merge_dev.geno_sample(keys, thr, 0)
+    check_equal("geno_sample multi-word", mask, merge_dev.geno_sample_plain(keys, thr, 0))
+    ms = median_ms(lambda: merge_dev.geno_sample(keys, thr, 0))
+    dev_ms = events_ms(lambda: merge_dev.geno_sample(keys, thr, 0))
+    plain = median_ms(lambda: merge_dev.geno_sample_plain(keys, thr, 0))
+    # two key words in, a flag out; ~40 int32 operations a key (four
+    # avalanche rounds, the splits and the compare)
+    r = row(ms, plain, 0.0, 17 * n, 40 * n, device_ms=dev_ms)
+    print(f"[K-GENO mw] geno_sample 2^23 two-word keys at 0.001 "
+          f"({int(mask.sum())} sampled): kernel {ms:.4f} ms (device {dev_ms:.4f} "
+          f"ms over 20 queued launches), plain {plain:.4f} ms; {share(r)}, "
+          f"{r['bound_ms'] / dev_ms:.1%} of it over the device time; library: "
+          f"none (no one call)")
+    return r
 
 
 def run_inputs(dev, rng):
@@ -669,14 +895,17 @@ def compare_geno(dev, rng):
         check_equal(f"geno_sample {rate}", mask,
                     merge_dev.geno_sample_plain(keys, thr, 0))
         ms = median_ms(lambda: merge_dev.geno_sample(keys, thr, 0))
+        dev_ms = events_ms(lambda: merge_dev.geno_sample(keys, thr, 0))
         plain = median_ms(lambda: merge_dev.geno_sample_plain(keys, thr, 0))
         # a key in, a flag out; ~21 int32 operations a key (two avalanche
         # rounds of the hash chain, the split and the compare)
         n = keys.numel()
-        res[rate] = row(ms, plain, 0.0, 9 * n, 21 * n)
+        res[rate] = row(ms, plain, 0.0, 9 * n, 21 * n, device_ms=dev_ms)
         print(f"[K-GENO] geno_sample 2^23 keys at {rate} ({int(mask.sum())} "
-              f"sampled): kernel {ms:.4f} ms, plain {plain:.4f} ms; "
-              f"{share(res[rate])}; library: none (no one call)")
+              f"sampled): kernel {ms:.4f} ms (device {dev_ms:.4f} ms over 20 "
+              f"queued launches), plain {plain:.4f} ms; {share(res[rate])}, "
+              f"{res[rate]['bound_ms'] / dev_ms:.1%} of it over the device "
+              f"time; library: none (no one call)")
     return res[0.001]
 
 
@@ -767,12 +996,38 @@ def compare_gram(dev, rng):
         # diagonal (the kernel mirrors the rest) and 32-row word an AND and
         # an add on the int32 pipe and a popcount on its own
         pair_words = S * (S + 1) // 2 * (B // 32)
+        lib = int_mm_ms(X, pca.int_gram(X))
         res[S] = row(ms, plain, 0.0, B * S + 8 * S * S,
-                     {"int32": B * S + 2 * pair_words, "popc": pair_words})
+                     {"int32": B * S + 2 * pair_words, "popc": pair_words},
+                     library=lib)
         print(f"[K-GRAM] int_gram [{B}, {S}]: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms; {share(res[S])}; library: none (an f32 "
-              f"torch.matmul is inexact beyond 2^24 rows)")
+              f"{plain:.4f} ms; {share(res[S])}; library torch._int_mm (int8 "
+              f"0/1 on the tensor cores, S padded to {-(-S // 8) * 8}; exact, "
+              f"checked) {lib:.4f} ms")
     return res[20]
+
+
+def int_mm_ms(X, gram) -> float:
+    """torch._int_mm on a 0/1 block as int8, its sample count padded with
+    zero columns to a multiple of 8: the Gram in int32 on the tensor cores,
+    exact while the rows stay below 2^31; held equal to K-GRAM's, then
+    timed (the cast and the padding are made before the timed region)."""
+    import torch
+
+    B, S = X.shape
+    Sp = -(-S // 8) * 8
+    Xt = torch.zeros((Sp, B), dtype=torch.int8, device=X.device)
+    Xt[:S] = X.t()
+    rhs = Xt.t()  # [B, Sp], column-major
+    try:
+        got = torch._int_mm(Xt, rhs)
+    except RuntimeError as e:  # a build that takes the right side row-major
+        print(f"[K-GRAM] torch._int_mm refused a column-major right side ({e}); "
+              "row-major")
+        rhs = rhs.contiguous()
+        got = torch._int_mm(Xt, rhs)
+    check_equal(f"torch._int_mm [{B}, {S}]", got[:S, :S].to(torch.int64), gram)
+    return median_ms(lambda: torch._int_mm(Xt, rhs))
 
 
 def compare_irls(dev, rng):
@@ -1076,9 +1331,9 @@ def _read_fasta(path):
     return [(lines[i][1:], lines[i + 1]) for i in range(0, len(lines) - 1, 2)]
 
 
-def _diff_cpu_vs_gpu(main, dev, args, label, alpha):
+def _diff_cpu_vs_gpu(main, dev, args, label, alpha, k=31):
     """Run `diff` with args on the CPU (and on `dev` unless out_gpu of this
-    label exists); require byte-identical FASTA of 31-mers with p < alpha.
+    label exists); require byte-identical FASTA of k-mers with p < alpha.
     Returns (k-mers tested, {group: significant k-mers})."""
     outs = {}
     for name, where in (("gpu", dev), ("cpu", "cpu")):
@@ -1102,7 +1357,7 @@ def _diff_cpu_vs_gpu(main, dev, args, label, alpha):
         recs = _read_fasta(a)
         for name, seq in recs:
             p = float(name.split("pval=")[1].split("_")[0])
-            if len(seq) != 31 or not 0.0 <= p < alpha:
+            if len(seq) != k or not 0.0 <= p < alpha:
                 raise AssertionError(f"{label} {g}: bad record {name} {seq}")
         n_sig[g] = len(recs)
     return tested[0], n_sig
@@ -1284,149 +1539,82 @@ POP_ARTIFACTS = ("gwas_eigenstratX.geno", "gwas_eigenstratX.snp",
                  "case.ind", "parfile.txt", "pcs.evec")
 
 
-def _pvals(out):
-    ps = {}
-    for g in ("control", "case"):
-        for name, seq in _read_fasta(os.path.join(out, f"{g}_kmers.fasta")):
-            ps[(g, seq)] = float(name.split("pval=")[1].split("_")[0])
-    return ps
-
-
 #: the popstrat `diff`s on CUDA and on the CPU: at most this many corrected
 #: k-mers (bar those within 1% of alpha) in one FASTA only, as measured on
 #: the bench cohort (NVIDIA H100 80GB HBM3, 700 W); each one a quasi-separated
 #: alt fit that f32 IRLS drove to p = 1 on one side only
 KNIFE_EDGES_MAX = 50
-
-
-def _fasta_keys(out) -> dict:
-    """{canonical int64 key: p-value} of a `diff`'s two FASTA files."""
-    import numpy as np
-    import torch
-
-    from kmdiff_tpu_torch.ops import codec
-
-    ps = _pvals(out)
-    if not ps:
-        return {}
-    text = np.frombuffer("N".join(seq for _g, seq in ps).encode(), np.uint8)
-    codes = torch.from_numpy(codec.encode_ascii_block(text))
-    keys = codec.canonical_kmers_plain(codes, 31)[::32]
-    return dict(zip(keys.tolist(), ps.values()))
-
-
-def _refit(dev, opt, run_dir, gpu_out, cpu_out):
-    """Refit the alt model of every k-mer the popstrat `diff`s corrected
-    (the CUDA run's kept spills) three ways: K-IRLS with the CUDA run's
-    null fit and its twin on the CPU with the CPU run's, both in f32 as the
-    two runs fitted them; and, as a witness that shares no f32 rounding
-    with either, the twin on the card in f64 with its own f64 null fit.
-    Returns (keys [H] int64, {"gpu" | "cpu" | "f64": p-values [H]})."""
-    import numpy as np
-    import torch
-
-    from kmdiff_tpu_torch.cmd.diff import read_config
-    from kmdiff_tpu_torch.ops import codec, glm
-    from kmdiff_tpu_torch.pipeline.popstrat import (
-        FileAccumulator,
-        KmerSignBlock,
-        _condition_design,
-        chi2_sf1,
-        load_corrector,
-    )
-
-    config = read_config(run_dir)
-    blocks = []
-    for p in range(config.nb_partitions):
-        acc = FileAccumulator(os.path.join(gpu_out, "partitions", f"p{p}_uncorrected"),
-                              config.kmer_size, read=True,
-                              nb_samples=N_CONTROLS + N_CASES)
-        blocks.extend(acc.blocks())
-    blk = KmerSignBlock.concat(blocks)
-    ps = {}
-    for label, where, out in (("gpu", dev, gpu_out),
-                              ("cpu", torch.device("cpu"), cpu_out)):
-        sub = KmerSignBlock(blk.kmers, blk.pvalues.copy(), blk.signs,
-                            blk.mean_control, blk.mean_case, blk.counts_ratio)
-        load_corrector(opt, config, os.path.join(out, "popstrat"),
-                       where).correct_block(sub)
-        ps[label] = sub.pvalues
-
-    # the f64 witness: PopStratCorrector.correct_block's designs and LLR
-    corr = load_corrector(opt, config, os.path.join(gpu_out, "popstrat"), dev)
-
-    def t64(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
-                               device=dev)
-
-    y = t64(corr.Y)
-    null_c, _c, _s = _condition_design(corr.null_features)
-    ll0 = float(glm.irls_plain(t64(null_c[None]), None, y,
-                               corr.max_iteration)[3][0])
-    shared, _c, _s = _condition_design(corr.alt_features[:, :-1])
-    r = blk.counts_ratio / corr.totals[None, :]
-    r = r - r.mean(axis=1, keepdims=True)
-    r = r / np.maximum(np.abs(r).max(axis=1, keepdims=True), 1e-300)
-    ll1 = glm.irls_plain(t64(np.column_stack([shared, np.zeros(corr.size)])[None]),
-                         t64(r), y, corr.max_iteration)[3].cpu().numpy()
-    llr = -2.0 * (ll0 - ll1)
-    llr = np.where((np.abs(llr) < corr.epsilon) | (llr < 0.0) | ~np.isfinite(ll1),
-                   0.0, llr)
-    ps["f64"] = chi2_sf1(llr)
-    return codec.words_to_keys(blk.kmers), ps
+#: check_popstrat_fasta judges how the k-mers in one FASTA only split
+#: between the sides, and how the f64 refit sides, in distinct alt designs,
+#: and only from this many up: a variant's k-mers often share their count
+#: ratios, so one design (one fit) can be dozens of k-mers, and a split of
+#: fewer designs is a few tosses of a coin (tools/knife_edges.py: 12 k-mers
+#: of 2 designs at k = 63 on the bench cohort, NVIDIA H100 80GB HBM3, 700 W)
+SPLIT_MIN_DESIGNS = 4
 
 
 def check_popstrat_fasta(dev, opt, run_dir, gpu, cpu, alpha) -> str:
-    """Phase 5(a)'s FASTA check, CUDA against CPU: every alt fit refitted
-    (_refit) must give its run's FASTA; the k-mers in both FASTA agree
-    within 1% relative; the ones in one only, bar those within 1% of
-    alpha, are at most KNIFE_EDGES_MAX, neither side holding under a
-    quarter of them, each p = 1 on one side; the f64 refit, which shares
-    no f32 rounding with either side, must side with each on at least a
-    quarter of them, and the kernel's significant set must lie no further
-    from the f64 one than its twin's."""
+    """Phases 5(a) and 7(b)'s FASTA check, CUDA against CPU
+    (tools.knife_edges.compare refits every alt fit): the refits must give
+    each run's FASTA; the k-mers in both FASTA agree within 1% relative; the
+    ones in one only, bar those within 1% of alpha, are at most
+    KNIFE_EDGES_MAX, each p = 1 on one side; counted in distinct alt designs
+    (k-mers with equal count ratios share one fit), and from
+    SPLIT_MIN_DESIGNS of them up, neither side holds under a quarter of
+    them, and the f64 refit, which shares no f32 rounding with either side,
+    sides with each on at least a quarter; and the kernel's significant set
+    lies no further from the f64 one than its twin's. The report (and a
+    failure) ends with knife_edges.describe."""
     import numpy as np
 
-    got, want = _fasta_keys(gpu), _fasta_keys(cpu)
-    keys, ps = _refit(dev, opt, run_dir, gpu, cpu)
-    sig = {k: set(keys[p < alpha].tolist()) for k, p in ps.items()}
-    if sig["gpu"] != set(got) or sig["cpu"] != set(want):
+    from kmdiff_tpu_torch.tools import knife_edges
+
+    cmp = knife_edges.compare(dev, opt, run_dir, gpu, cpu, alpha,
+                              N_CONTROLS + N_CASES)
+    sig, ps, only, design = cmp["sig"], cmp["ps"], cmp["only"], cmp["design"]
+    gpu_only, cpu_only = cmp["gpu_only"], cmp["cpu_only"]
+    if sig["gpu"] != set(cmp["got"]) or sig["cpu"] != set(cmp["want"]):
         raise AssertionError("popstrat diff: the refitted alt models do not "
                              "give the FASTA's k-mers")
-    both = set(got) & set(want)
-    rel = max((abs(got[k] - want[k]) / want[k] for k in both if want[k] > 0),
-              default=0.0)
-    if rel > 0.01:
-        raise AssertionError(f"popstrat diff: p-values {rel:.3g} apart (relative)")
-    near = {k for k, p in {**got, **want}.items() if abs(p - alpha) <= 0.01 * alpha}
-    gpu_only = set(got) - set(want) - near
-    cpu_only = set(want) - set(got) - near
-    only = gpu_only | cpu_only
-    if len(only) > KNIFE_EDGES_MAX or 4 * min(len(gpu_only), len(cpu_only)) < len(only):
-        raise AssertionError(f"popstrat diff: {len(gpu_only)} k-mers on CUDA "
-                             f"only, {len(cpu_only)} on the CPU only (at most "
-                             f"{KNIFE_EDGES_MAX}, neither side under a quarter)")
-    at = np.isin(keys, np.fromiter(only, np.int64, len(only)))
+    if cmp["rel"] > 0.01:
+        raise AssertionError(f"popstrat diff: p-values {cmp['rel']:.3g} apart (relative)")
+    why = knife_edges.describe(dev, opt, run_dir, gpu, cpu, cmp, alpha)
+    n_designs = len(set(design.values()))
+    held = {s: {design[k] for k in ks} for s, ks in (("gpu", gpu_only), ("cpu", cpu_only))}
+    right = {s: {design[k] for k in only if (k in sig[s]) == (k in sig["f64"])}
+             for s in ("gpu", "cpu")}
+    split = n_designs >= SPLIT_MIN_DESIGNS
+    if len(only) > KNIFE_EDGES_MAX or (
+            split and 4 * min(len(d) for d in held.values()) < n_designs):
+        raise AssertionError(f"popstrat diff: {len(gpu_only)} k-mers on CUDA only "
+                             f"({len(held['gpu'])} designs), {len(cpu_only)} on the "
+                             f"CPU only ({len(held['cpu'])}) (at most "
+                             f"{KNIFE_EDGES_MAX} k-mers; of {n_designs} designs, "
+                             f"neither side under a quarter); {why}")
+    at = np.isin(cmp["kmers"], sorted(only))
     if not (np.maximum(ps["gpu"][at], ps["cpu"][at]) == 1.0).all():
         raise AssertionError("popstrat diff: a k-mer in one FASTA only is no "
-                             "knife edge of f32 IRLS (p = 1 on one side)")
-    right = {s: sum((k in sig[s]) == (k in sig["f64"]) for k in only)
-             for s in ("gpu", "cpu")}
+                             f"knife edge of f32 IRLS (p = 1 on one side); {why}")
     miss = {s: len(sig[s] ^ sig["f64"]) for s in ("gpu", "cpu")}
-    if 4 * min(right.values()) < len(only) or miss["gpu"] > miss["cpu"]:
+    if (split and 4 * min(len(d) for d in right.values()) < n_designs) or \
+            miss["gpu"] > miss["cpu"]:
         raise AssertionError(f"popstrat diff: against the f64 refit, CUDA is "
-                             f"right on {right['gpu']} of the {len(only)} k-mers "
-                             f"in one FASTA only and the CPU on {right['cpu']}; "
-                             f"CUDA's set is {miss['gpu']} k-mers off f64's, the "
-                             f"CPU's {miss['cpu']}")
-    return (f"{len(both)} k-mers in both FASTA, p-values within {rel:.3g} "
-            f"relative; {len(gpu_only)} on CUDA only and {len(cpu_only)} on the "
-            f"CPU only, each p = 1 on one side (quasi-separated); the f64 "
-            f"refit sides with CUDA on {right['gpu']} of them, with the CPU on "
-            f"{right['cpu']}; f64's significant set ({len(sig['f64'])}) differs "
-            f"from CUDA's by {miss['gpu']} k-mers, from the CPU's by "
-            f"{miss['cpu']}; {len((set(got) ^ set(want)) & near)} within 1% of "
-            "alpha in one only")
+                             f"right on {len(right['gpu'])} of the {n_designs} "
+                             f"designs in one FASTA only and the CPU on "
+                             f"{len(right['cpu'])}; CUDA's set is {miss['gpu']} "
+                             f"k-mers off f64's, the CPU's {miss['cpu']}; {why}")
+    return (f"{len(cmp['both'])} k-mers in both FASTA, p-values within "
+            f"{cmp['rel']:.3g} relative; {len(gpu_only)} on CUDA only and "
+            f"{len(cpu_only)} on the CPU only, each p = 1 on one side "
+            f"(quasi-separated), {n_designs} distinct alt designs, "
+            f"{len(held['gpu'])} on CUDA's side and {len(held['cpu'])} on the "
+            f"CPU's; the f64 refit sides with CUDA on {len(right['gpu'])} designs, "
+            f"with the CPU on {len(right['cpu'])}"
+            f"{'' if split else f' (under {SPLIT_MIN_DESIGNS} designs: no split judged)'}"
+            f"; f64's significant set ({len(sig['f64'])}) differs from CUDA's by "
+            f"{miss['gpu']} k-mers, from the CPU's by {miss['cpu']}; "
+            f"{len((set(cmp['got']) ^ set(cmp['want'])) & cmp['near'])} within 1% "
+            f"of alpha in one only; {why}")
 
 
 def run_popstrat(dev, phase3) -> dict:
@@ -1841,6 +2029,171 @@ def run_wide(dev, phase3) -> dict:
     return launches
 
 
+#: the kernels phase 7's paths launch at k > 32: the multi-word forms of
+#: K-EXT, K-RUN, K-ASM and K-GENO, never their one-word forms
+MW_COUNT_DIFF_KERNELS = ("canonical_kmers_mw", "run_bounds_mw", "compact", "lrt_filter")
+MW_RUN_KERNELS = (*MW_COUNT_DIFF_KERNELS, "assemble_chunk_mw", "abundance_hist")
+MW_POP_KERNELS = ("run_bounds_mw", "compact", "run_rows", "geno_sample_mw",
+                  "int_gram", "irls", "lrt_filter")
+ONE_WORD_FORMS = ("canonical_kmers", "run_bounds", "assemble_chunk", "geno_sample")
+
+
+def require_multiword(path: str, launches: dict, names) -> None:
+    require_launches(path, launches, names)
+    one = {n: launches[n] for n in ONE_WORD_FORMS if launches[n]}
+    if one:
+        raise AssertionError(f"{path} launched one-word forms {one}")
+
+
+def _count_diff_at(dev, fof, k: int) -> dict:
+    """Phase 7's count + diff at k on CUDA (defaults, and the loose cut,
+    which must keep k-mers of both groups), then the CPU reruns of both
+    diffs and the recount of sample 0: byte-identical."""
+    from kmdiff_tpu_torch import kernels
+    from kmdiff_tpu_torch.cli import main
+
+    run = os.path.join(WORK, f"run_k{k}")
+    count_args = ["count", "--file", fof, "--kmer-size", str(k), "--hard-min",
+                  "1", "--nb-partitions", "4", "--threads", "4"]
+    diff_args = ["diff", "--km-run-dir", run, "-1", str(N_CONTROLS), "-2",
+                 str(N_CASES), "--threads", "4"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    main([*count_args, "--run-dir", run], device=dev)
+    t_count = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    main([*diff_args, "--output-dir", os.path.join(WORK, f"k{k}_defaults_gpu")],
+         device=dev)
+    t_diff = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    require_multiword(f"count + diff at k={k}", launches, MW_COUNT_DIFF_KERNELS)
+    print(f"[k={k}] count {t_count:.3f} s, diff {t_diff:.3f} s (wall, CUDA); "
+          f"launches {launches}")
+    t0 = time.perf_counter()
+    tested, n_sig = _diff_cpu_vs_gpu(main, dev, diff_args, f"k{k}_defaults", 0.05, k)
+    loose = [*diff_args, "-s", "0.001", "--cutoff", "1", "-c", "disabled"]
+    _tested, n_loose = _diff_cpu_vs_gpu(main, dev, loose, f"k{k}_loose", 0.001, k)
+    if not n_loose["case"] or not n_loose["control"]:
+        raise AssertionError(f"k={k}: no k-mer passed p < 0.001: {n_loose}")
+    with open(fof) as f:
+        first = f.readline()
+    fof0 = os.path.join(WORK, "fof0.txt")
+    with open(fof0, "w") as f:
+        f.write(first)
+    sid = first.split(":")[0].strip()
+    run0 = os.path.join(WORK, f"run_k{k}_cpu0")
+    main([*count_args[:2], fof0, *count_args[3:], "--run-dir", run0], device="cpu")
+    rels = [os.path.join("histograms", f"{sid}.hist")] + [
+        os.path.join("counts", f"partition_{p}", f"{sid}.kmer.lz4") for p in range(4)]
+    for rel in rels:
+        if not _same_bytes(os.path.join(run, rel), os.path.join(run0, rel)):
+            raise AssertionError(f"k={k} {rel}: CUDA and CPU counts differ")
+    print(f"[k={k}] {tested} k-mers tested, significant {n_sig} (defaults), "
+          f"{n_loose} (-s 0.001 --cutoff 1 -c disabled); both diffs' FASTA and "
+          f"sample {sid}'s .kmer.lz4 and .hist byte-identical CUDA vs CPU "
+          f"({time.perf_counter() - t0:.3f} s)")
+    return {"launches": launches, "count": t_count, "diff": t_diff, "run": run}
+
+
+def run_multiword(dev, phase3) -> dict:
+    """Phase 7: k > 32 on the bench cohort (phase 3's reads) at its full
+    size. k = 63 (two words, 31 bases in the second): count + diff on CUDA
+    against the CPU, the fused `run` (a), whose FASTA, count files and
+    histograms must equal count + diff's, and popstrat `diff --save-sk` on
+    CUDA and the CPU under phase 5's rules; k = 128 (four words): count +
+    diff. Launch counts reset before each part and required > 0 after it
+    for the multi-word forms (and 0 for the one-word forms). Returns each
+    part's launch counts."""
+    import torch
+
+    from kmdiff_tpu_torch import kernels
+    from kmdiff_tpu_torch.cli import count_options, diff_options, parse_args
+    from kmdiff_tpu_torch.cmd.diff import main_diff
+    from kmdiff_tpu_torch.cmd.run import main_run
+
+    fof = phase3["fof"]
+    out = {}
+    k63 = _count_diff_at(dev, fof, 63)
+    out["count+diff k=63"] = k63["launches"]
+
+    # (a) the fused run at k = 63, the defaults
+    run_dir, out_dir = os.path.join(WORK, "fused_k63"), os.path.join(WORK, "fused_k63_out")
+    args = parse_args(["run", "--file", fof, "--kmer-size", "63", "--hard-min", "1",
+                       "--nb-partitions", "4", "--threads", "4", "-1",
+                       str(N_CONTROLS), "-2", str(N_CASES), "--run-dir", run_dir,
+                       "--output-dir", out_dir])
+    timings = {}
+    kernels.reset_launch_counts()
+    res = main_run(count_options(args), diff_options(args), dev,
+                   recurrence_min=args.recurrence_min,
+                   count_files=not args.no_count_files, timings=timings)
+    launches = kernels.launch_counts()
+    if "merge" not in timings:
+        raise AssertionError("run (a) at k=63 was not served by the fused path")
+    require_multiword("run (a) at k=63", launches, MW_RUN_KERNELS)
+    for g in ("control", "case"):
+        name = f"{g}_kmers.fasta"
+        if not _same_bytes(os.path.join(out_dir, name),
+                           os.path.join(WORK, "k63_defaults_gpu", name)):
+            raise AssertionError(f"run (a) at k=63 {name} differs from diff's")
+    for sub in [os.path.join("counts", f"partition_{p}") for p in range(4)] + ["histograms"]:
+        names = sorted(os.listdir(os.path.join(k63["run"], sub)))
+        if sorted(os.listdir(os.path.join(run_dir, sub))) != names:
+            raise AssertionError(f"run (a) at k=63 {sub}: other files")
+        for n in names:
+            if not _same_bytes(os.path.join(run_dir, sub, n),
+                               os.path.join(k63["run"], sub, n)):
+                raise AssertionError(f"run (a) at k=63 {sub}/{n} differs")
+    print(f"[run a, k=63] count {timings['count']:.3f} s, merge "
+          f"{timings['merge']:.3f} s, total {timings['total']:.3f} s (wall, CUDA; "
+          f"count {k63['count']:.3f} s + diff {k63['diff']:.3f} s at k=63); "
+          f"{res['total_kmers']} k-mers tested; FASTA, count files and histograms "
+          f"byte-identical to count + diff's; launches {launches}")
+    out["run (a) k=63"] = launches
+
+    # (b) popstrat diff --save-sk at k = 63, CUDA then CPU
+    loose = ["-1", str(N_CONTROLS), "-2", str(N_CASES), "--threads", "4", "-s",
+             "0.001", "--cutoff", "1", "-c", "disabled"]
+    flags = [*loose, "--pop-correction", "--save-sk", "--keep-tmp"]
+    outs, pop = {}, {}
+    for label, where in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        o = os.path.join(WORK, f"pop_k63_{label}")
+        args = parse_args(["diff", "--km-run-dir", k63["run"], *flags, "--output-dir", o])
+        timings = {}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = main_diff(diff_options(args), where, timings)
+        wall = time.perf_counter() - t0
+        pop[label] = kernels.launch_counts()
+        print(f"[popstrat diff k=63 {label}] {wall:.3f} s wall (PCA "
+              f"{timings['pca']:.3f} s, null fit {timings['null_fit']:.3f} s, alt "
+              f"fits {timings['alt_fits']:.3f} s); significant {res['control']} "
+              f"control / {res['case']} case; launches {pop[label]}")
+        outs[label] = o
+    require_multiword("popstrat diff at k=63", pop["gpu"], MW_POP_KERNELS)
+    gpu, cpu = outs["gpu"], outs["cpu"]
+    for name in POP_ARTIFACTS:
+        if not _same_bytes(os.path.join(gpu, "popstrat", name),
+                           os.path.join(cpu, "popstrat", name)):
+            raise AssertionError(f"popstrat diff k=63 {name}: CUDA and CPU differ")
+    mdir = os.path.join("positive_kmer_matrix", "matrices")
+    mats = sorted(os.listdir(os.path.join(gpu, mdir)))
+    if not mats or mats != sorted(os.listdir(os.path.join(cpu, mdir))):
+        raise AssertionError(f"popstrat diff k=63: --save-sk matrices {mats}")
+    for name in mats:
+        if not _same_bytes(os.path.join(gpu, mdir, name), os.path.join(cpu, mdir, name)):
+            raise AssertionError(f"popstrat diff k=63 {name}: CUDA and CPU differ")
+    report = check_popstrat_fasta(dev, diff_options(args), k63["run"], gpu, cpu,
+                                  0.001)
+    print(f"[check] popstrat diff at k=63: artifacts and {len(mats)} --save-sk "
+          f"matrices byte-identical CUDA vs CPU; {report}")
+    out["popstrat diff k=63"] = pop["gpu"]
+
+    k128 = _count_diff_at(dev, fof, 128)
+    out["count+diff k=128"] = k128["launches"]
+    return out
+
+
 def load_native() -> None:
     """Build and load the port's native host-IO library; it must come from
     the checkout's build/kmdiff_tpu_torch/native/."""
@@ -1898,13 +2251,14 @@ def main() -> int:
         fused_launches = run_fused(dev, phase3)
         pop_launches, pop_run_launches = run_popstrat(dev, phase3)
         wide_launches = run_wide(dev, phase3)
+        mw_launches = run_multiword(dev, phase3)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     paths = {"count+diff": phase3["launches"], "run (a)": fused_launches["a"],
              "run (b)": fused_launches["b"], "popstrat diff": pop_launches,
              "popstrat run": pop_run_launches, "wide diff": wide_launches["a"],
              "wide popstrat diff": wide_launches["b"],
-             "forced-wide run": wide_launches["c"]}
+             "forced-wide run": wide_launches["c"], **mw_launches}
     for name in timings:
         print(f"[launches] {name}: " + ", ".join(
             f"{path} {launches[name]}" for path, launches in paths.items()))
@@ -1927,12 +2281,21 @@ def main() -> int:
         "geno_sample": ("kmdiff_tpu/ops/merge_dev.py:39", pop_launches),
         "int_gram": ("kmdiff_tpu/ops/pca.py:47", pop_launches),
         "irls": ("kmdiff_tpu/ops/glm.py:45", pop_launches),
+        # the multi-word forms, their launches on phase 7's k = 63 paths
+        "canonical_kmers_mw": ("kmdiff_tpu/ops/codec.py:73",
+                               mw_launches["count+diff k=63"]),
+        "run_bounds_mw": ("kmdiff_tpu/ops/codec.py:341",
+                          mw_launches["count+diff k=63"]),
+        "assemble_chunk_mw": ("kmdiff_tpu/pipeline/fused.py:387",
+                              mw_launches["run (a) k=63"]),
+        "geno_sample_mw": ("kmdiff_tpu/ops/merge_dev.py:323",
+                           mw_launches["popstrat diff k=63"]),
     }
     rows = []
     for name, (replaces, launches) in meta.items():
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"kmdiff_tpu_torch/csrc/{name}.cu",
+            "source": f"kmdiff_tpu_torch/csrc/{kernels.MULTIWORD.get(name, name)}.cu",
             "replaces": replaces, "launches": launches[name], **timings[name],
         })
         if "wide_ms" in timings[name] and name != "abundance_hist":

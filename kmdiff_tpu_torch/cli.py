@@ -316,8 +316,6 @@ def _reject_unported(args) -> None:
         raise _unported("--distributed", "item 7: multi-GPU")
     if args.profile:
         raise _unported("--profile", "item 9: the H100 bench and its traces")
-    if args.command in ("count", "run") and args.kmer_size > 32:
-        raise _unported(f"--kmer-size {args.kmer_size}", "item 2: k > 32")
     if args.command in ("diff", "run") and args.model_lib_path:
         raise _unported("--model", "item 6: plugins")
 

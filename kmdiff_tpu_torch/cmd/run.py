@@ -71,14 +71,8 @@ def main_run(copt: CountOptions, dopt: DiffOptions, device: torch.device,
     fused path's phases ("count", "merge", "total", and with popstrat
     "pca", "null_fit", "alt_fits"); the result dict is main_diff's."""
     from kmdiff_tpu_torch.cmd.diff import _reject_unported
-    from kmdiff_tpu_torch.ops.codec import MAX_K
 
     _reject_unported(dopt)
-    if copt.kmer_size > MAX_K:
-        raise NotImplementedError(
-            f"k={copt.kmer_size}: the port counts k <= 32; k > 32 is "
-            "ROADMAP.md port queue item 2"
-        )
     manifest = os.path.join(dopt.output_directory, "options.json")
     if os.path.exists(manifest) or _run_dir_complete(copt.directory):
         logger.info("run: resuming through the standard count+diff flow.")

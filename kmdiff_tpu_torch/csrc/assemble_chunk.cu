@@ -157,3 +157,113 @@ KMD_API int kmd_assemble_chunk(const int64_t* streams, const int64_t* starts,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// K-ASM, multi-word form (k > 32): each stream's keys are [nw, U_s] int64,
+// word-major with row stride U_s, and the chunk's keys [nw, N] likewise
+// (row stride N); the counts, their packing and the sample ids are the
+// one-word form's. The table's rows are three int64: keys and counts
+// pointers and the keys' row stride. A simple form: a 1-D grid over tiles
+// of 1024 output rows, 4 a thread; the block's first stream found as in the
+// one-word form, then each thread walks forward to its rows' streams and
+// copies the nw words, the count and the sample id of each: consecutive
+// threads read consecutive rows of a slice and write consecutive rows of
+// the chunk, one word row at a time (coalesced), with no staging.
+namespace {
+
+constexpr int kMwTile = 1024;
+constexpr int kMwPerThread = kMwTile / kThreads;
+
+struct StreamMw {
+  const int64_t* keys;
+  const uint32_t* counts;
+  long long ld;
+};
+static_assert(sizeof(StreamMw) == 24, "one table row is three int64");
+
+template <typename Packed, int NW>
+__global__ void __launch_bounds__(kThreads)
+assemble_mw_kernel(const StreamMw* __restrict__ streams, const int64_t* __restrict__ starts,
+                   const int64_t* __restrict__ offsets, int S, int nb_controls,
+                   long long N, int64_t* __restrict__ out_keys,
+                   Packed* __restrict__ out_counts, uint16_t* __restrict__ out_sample) {
+  __shared__ int first;
+  const long long t0 = static_cast<long long>(blockIdx.x) * kMwTile;
+  if (threadIdx.x == 0) {
+    int lo = 0;
+    int hi = S - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (__ldg(offsets + mid + 1) > t0) hi = mid; else lo = mid + 1;
+    }
+    first = lo;
+  }
+  __syncthreads();
+  int s = first;
+#pragma unroll
+  for (int j = 0; j < kMwPerThread; ++j) {
+    const long long r = t0 + threadIdx.x + j * kThreads;
+    if (r >= N) break;
+    while (__ldg(offsets + s + 1) <= r) ++s;
+    const StreamMw st = streams[s];
+    const long long src = __ldg(starts + s) + (r - __ldg(offsets + s));
+    int64_t key[NW];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) key[w] = __ldg(st.keys + w * st.ld + src);
+    const uint32_t cnt = __ldg(st.counts + src);
+    const bool control = s < nb_controls;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) out_keys[w * N + r] = key[w];
+    if (sizeof(Packed) == 2) {
+      out_counts[r] = static_cast<Packed>((cnt & 0xFFFFu) | (control ? 0x8000u : 0u));
+    } else {
+      out_counts[r] = static_cast<Packed>(cnt | (control ? 0x80000000u : 0u));
+    }
+    if (out_sample != nullptr) out_sample[r] = static_cast<uint16_t>(s);
+  }
+}
+
+template <typename Packed>
+void launch_mw(int nw, unsigned grid, cudaStream_t stream, const StreamMw* table,
+               const int64_t* starts, const int64_t* offsets, int S, int nb_controls,
+               long long N, int64_t* out_keys, void* out_counts, uint16_t* out_sample) {
+  Packed* counts = static_cast<Packed*>(out_counts);
+  switch (nw) {
+    case 2:
+      assemble_mw_kernel<Packed, 2><<<grid, kThreads, 0, stream>>>(
+          table, starts, offsets, S, nb_controls, N, out_keys, counts, out_sample);
+      break;
+    case 3:
+      assemble_mw_kernel<Packed, 3><<<grid, kThreads, 0, stream>>>(
+          table, starts, offsets, S, nb_controls, N, out_keys, counts, out_sample);
+      break;
+    default:
+      assemble_mw_kernel<Packed, 4><<<grid, kThreads, 0, stream>>>(
+          table, starts, offsets, S, nb_controls, N, out_keys, counts, out_sample);
+  }
+}
+
+}  // namespace
+
+// streams [S, 3] (keys pointer, counts pointer, keys row stride), starts
+// [S], offsets [S + 1] as in kmd_assemble_chunk, on the device; 2 <= nw <= 4;
+// out_keys [nw, N] contiguous, out_counts [N], out_sample [N] or null.
+KMD_API int kmd_assemble_chunk_mw(const int64_t* streams, const int64_t* starts,
+                                  const int64_t* offsets, int S, int nb_controls,
+                                  long long N, int count_bytes, int nw,
+                                  int64_t* out_keys, void* out_counts,
+                                  uint16_t* out_sample, cudaStream_t stream) {
+  if (count_bytes != 2 && count_bytes != 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (S <= 0 || S > 65535 || N <= 0 || nw < 2 || nw > 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned grid = kmd::grid_for(N, kMwTile);
+  const StreamMw* table = reinterpret_cast<const StreamMw*>(streams);
+  if (count_bytes == 2) {
+    launch_mw<uint16_t>(nw, grid, stream, table, starts, offsets, S, nb_controls, N,
+                        out_keys, out_counts, out_sample);
+  } else {
+    launch_mw<uint32_t>(nw, grid, stream, table, starts, offsets, S, nb_controls, N,
+                        out_keys, out_counts, out_sample);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -252,3 +252,95 @@ KMD_API int kmd_canonical_kmers(const uint8_t* codes, long long N, int k,
       codes, N, k, keys, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------------
+// K-EXT, multi-word form (33 <= k <= 128): the canonical k-mer of every
+// window as nw = ceil(k / 32) u64 words, word-major: keys [nw, N-k+1] int64,
+// row w holding word w of every window (core/kmer.py::pack_codes: word w
+// holds bases 32w .. min(k, 32w + 32) - 1, its first base highest, the last
+// word right-aligned in its low bits; kmdiff_tpu/ops/codec.py::_lane_shift),
+// each word XORed with 1<<63. The canonical form is the lexicographic min
+// over the words (most significant word first) of the forward and the
+// reverse-complement k-mer, whose base p is the complement of the window's
+// base k-1-p. A window that holds an INVALID code is the sentinel row: every
+// word INT64_MAX (no canonical k-mer equals it: it is an all-G k-mer, whose
+// reverse complement all-C is smaller; it sorts last).
+//
+// A simple form: a block of 256 threads owns 256 consecutive windows, copies
+// their 256 + k - 1 codes into shared memory, and each thread builds its
+// window's forward and reverse-complement words in registers from there,
+// k shared-memory reads each, word by word; the words are stored row by row,
+// consecutive threads writing consecutive windows (coalesced). Templated on
+// nw, so that every word lives in a register.
+namespace {
+
+constexpr int kMwThreads = 256;
+constexpr int kMwMaxK = 128;
+
+template <int NW>
+__global__ void __launch_bounds__(kMwThreads)
+canonical_kmers_mw_kernel(const uint8_t* __restrict__ codes, long long N, int k,
+                          int64_t* __restrict__ keys) {
+  __shared__ uint8_t sm[kMwThreads + kMwMaxK - 1];
+  const long long W = N - k + 1;
+  const long long lo = static_cast<long long>(blockIdx.x) * kMwThreads;
+  const long long hi = min(N, lo + kMwThreads + k - 1);
+  for (long long i = lo + threadIdx.x; i < hi; i += kMwThreads) sm[i - lo] = codes[i];
+  __syncthreads();
+  const long long win = lo + threadIdx.x;
+  if (win >= W) return;
+  const uint8_t* c = sm + threadIdx.x;
+  uint64_t fwd[NW];
+  uint64_t rc[NW];
+  unsigned bad = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const int p1 = min(k, 32 * w + 32);
+    uint64_t f = 0;
+    uint64_t r = 0;
+    for (int p = 32 * w; p < p1; ++p) {
+      const unsigned b = c[p];
+      bad |= b;
+      f = (f << 2) | (b & 3u);
+      r = (r << 2) | ((c[k - 1 - p] & 3u) ^ 2u);
+    }
+    fwd[w] = f;
+    rc[w] = r;
+  }
+  // lexicographic min: the first word that differs decides
+  bool take_rc = false;
+  bool undecided = true;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    take_rc = take_rc || (undecided && rc[w] < fwd[w]);
+    undecided = undecided && rc[w] == fwd[w];
+  }
+  const bool invalid = (bad & 0x80u) != 0;  // INVALID is 0xFF, codes are 0..3
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const uint64_t v = take_rc ? rc[w] : fwd[w];
+    keys[w * W + win] = invalid ? kmd::kSentinel : static_cast<int64_t>(v ^ (1ull << 63));
+  }
+}
+
+}  // namespace
+
+// codes [N] u8 at any byte offset, N >= k, 33 <= k <= 128; keys [nw, N-k+1]
+// int64, contiguous (row w at keys + w * (N-k+1)).
+KMD_API int kmd_canonical_kmers_mw(const uint8_t* codes, long long N, int k,
+                                   int64_t* keys, cudaStream_t stream) {
+  if (k <= 32 || k > kMwMaxK || N < k) return static_cast<int>(cudaErrorInvalidValue);
+  const long long W = N - k + 1;
+  const unsigned grid = kmd::grid_for(W, kMwThreads);
+  switch ((k + 31) / 32) {
+    case 2:
+      canonical_kmers_mw_kernel<2><<<grid, kMwThreads, 0, stream>>>(codes, N, k, keys);
+      break;
+    case 3:
+      canonical_kmers_mw_kernel<3><<<grid, kMwThreads, 0, stream>>>(codes, N, k, keys);
+      break;
+    default:
+      canonical_kmers_mw_kernel<4><<<grid, kMwThreads, 0, stream>>>(codes, N, k, keys);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

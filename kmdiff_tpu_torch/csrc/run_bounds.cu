@@ -419,3 +419,298 @@ KMD_API int kmd_run_encode(const int64_t* keys, long long N, int form,
   if (e == cudaSuccess) e = cudaStreamSynchronize(stream);
   return static_cast<int>(e);
 }
+
+// ---------------------------------------------------------------------------
+// K-RUN, multi-word form (k > 32): sorted keys [nw, N] int64, word-major
+// (row w holds word w of every row, row stride ld), rows in lexicographic
+// order over the words; a sentinel row has every word INT64_MAX. A row starts
+// a run where any word differs from the previous row's. The five forms, their
+// outputs and the one memset, one launch and one host sync a call are the
+// one-word kernel's; the run keys come out as [nw, U], row w at run_keys +
+// w * out_ld (out_ld >= U: the wrapper's buffer has room for N runs).
+//
+// A simple form of the one-word design: a block owns a tile of 1024 rows (4
+// rounds of 256 threads) in every form, each row's nw words in registers
+// and its predecessor's by shuffles (lane 0 reads them); one ballot a round;
+// the (round, warp) counts scanned by one warp; the boundaries' tile offsets
+// staged in shared memory, not their keys: a run's key words are read back
+// from device memory (L2) where the run is written. The last run of a tile
+// is finished past the tile's edge as in the one-word kernel, its key read
+// at its start row.
+namespace {
+
+constexpr int kMwRounds = 4;
+constexpr int kMwTile = kThreads * kMwRounds;
+constexpr int kMwSlots = kMwRounds * kWarps;
+static_assert(kMwSlots == 32, "one slot a lane in the scan");
+
+template <int NW>
+__device__ __forceinline__ bool row_is(const int64_t* keys, long long ld, long long r,
+                                       const int64_t (&key)[NW]) {
+  bool same = true;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) same = same && __ldg(keys + w * ld + r) == key[w];
+  return same;
+}
+
+// run_end over rows of nw words
+template <int NW>
+__device__ long long run_end_mw(const int64_t* keys, long long ld, long long N,
+                                long long lo, const int64_t (&key)[NW]) {
+  long long hi = N;
+  for (long long step = 1;; step <<= 1) {
+    const long long probe = lo + step - 1;
+    if (probe >= N) break;
+    if (!row_is<NW>(keys, ld, probe, key)) {
+      hi = probe;
+      break;
+    }
+    lo = probe + 1;
+  }
+  while (lo < hi) {
+    const long long mid = lo + (hi - lo) / 2;
+    if (!row_is<NW>(keys, ld, mid, key)) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+template <int F, int NW>
+__global__ void __launch_bounds__(kThreads)
+run_encode_mw_kernel(const int64_t* __restrict__ keys, long long ld, long long N,
+                     const int64_t* __restrict__ perm, const void* __restrict__ counts,
+                     const uint16_t* __restrict__ sample, int nb_controls, int n_tiles,
+                     int64_t* __restrict__ starts, int64_t* __restrict__ run_keys,
+                     long long out_ld, void* __restrict__ third,
+                     int64_t* __restrict__ n_valid, unsigned long long* scratch,
+                     long long* n_runs) {
+  constexpr bool kMerge = Tile<F>::kMerge;
+  using Sum = typename Tile<F>::Sum;
+  __shared__ uint16_t rows[kMwTile];  // boundary tile offsets, ascending
+  __shared__ __align__(16) Sum sums[kMerge ? 2 * kMwTile : 4];
+  __shared__ int slot[kMwSlots + 1];
+  __shared__ int tile_id;
+  __shared__ int sentinel_at;
+  __shared__ long long tile_offset;
+  __shared__ long long last_end;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned lt = (1u << lane) - 1u;
+
+  if (threadIdx.x == 0) {
+    tile_id = kmd::lookback::take_tile(scratch);
+    sentinel_at = -1;
+  }
+  if (kMerge) {
+    int4* z = reinterpret_cast<int4*>(sums);
+    constexpr int kVectors = 2 * kMwTile * static_cast<int>(sizeof(Sum)) / 16;
+    for (int i = threadIdx.x; i < kVectors; i += kThreads) z[i] = make_int4(0, 0, 0, 0);
+  }
+  __syncthreads();
+  const int t = tile_id;
+  const long long base = static_cast<long long>(t) * kMwTile;
+  const long long row0 = base + threadIdx.x;
+
+  // 1. this thread's rows (and, merging, their counts)
+  int64_t key[kMwRounds][NW];
+#pragma unroll
+  for (int j = 0; j < kMwRounds; ++j) {
+    const long long i = row0 + j * kThreads;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) key[j][w] = i < N ? __ldg(keys + w * ld + i) : kmd::kSentinel;
+  }
+  Sum val[kMwRounds];
+  unsigned ctrl_bits = 0;
+  if (kMerge) {
+    long long p[kMwRounds];
+#pragma unroll
+    for (int j = 0; j < kMwRounds; ++j) {
+      const long long i = row0 + j * kThreads;
+      p[j] = i < N ? __ldg(perm + i) : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < kMwRounds; ++j) {
+      bool c = false;
+      val[j] = 0;
+      if (p[j] >= 0) unpack<F>(counts, sample, nb_controls, p[j], val[j], c);
+      ctrl_bits |= static_cast<unsigned>(c) << j;
+    }
+  }
+
+  // 2. boundaries: a row differs from its predecessor in any word
+  unsigned ballot[kMwRounds];
+  unsigned valid_bits = 0;
+#pragma unroll
+  for (int j = 0; j < kMwRounds; ++j) {
+    const long long i = row0 + j * kThreads;
+    bool differs = false;
+    bool sentinel = true;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      long long prev = __shfl_up_sync(0xffffffffu, static_cast<long long>(key[j][w]), 1);
+      if (lane == 0 && i > 0 && i <= N) prev = __ldg(keys + w * ld + i - 1);
+      differs = differs || key[j][w] != prev;
+      sentinel = sentinel && key[j][w] == kmd::kSentinel;
+    }
+    const bool real = i < N;
+    const bool valid = real && !sentinel;
+    const bool boundary = real && (i == 0 || differs);
+    valid_bits |= static_cast<unsigned>(valid) << j;
+    ballot[j] = __ballot_sync(0xffffffffu, boundary);
+    if (boundary && !valid) {
+      sentinel_at = static_cast<int>(i - base);
+      *n_valid = i;
+    } else if (valid && i == N - 1) {
+      *n_valid = N;
+    }
+    if (lane == 0) slot[j * kWarps + warp] = __popc(ballot[j]);
+  }
+  __syncthreads();
+  if (warp == 0) {  // exclusive scan of the 32 slot counts, one a lane
+    const int c = slot[lane];
+    int incl = c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    slot[lane] = incl - c;
+    if (lane == 31) slot[kMwSlots] = incl;
+  }
+  __syncthreads();
+  const int n_bound = slot[kMwSlots];
+  const int aggregate = n_bound - (sentinel_at >= 0 ? 1 : 0);
+  if (threadIdx.x == 0) kmd::lookback::publish(scratch, t, aggregate);
+#pragma unroll
+  for (int j = 0; j < kMwRounds; ++j) {
+    const unsigned b = ballot[j];
+    const int before = slot[j * kWarps + warp] + __popc(b & lt);
+    if ((b >> lane) & 1u) rows[before] = static_cast<uint16_t>(j * kThreads + threadIdx.x);
+    const int r = before + static_cast<int>((b >> lane) & 1u) - 1;
+    if (kMerge && ((valid_bits >> j) & 1u) && r >= 0) {
+      Sum* slot_sum = &sums[2 * r + (((ctrl_bits >> j) & 1u) ? 0 : 1)];
+      if constexpr (F == kFull) {
+        atomicAdd(reinterpret_cast<unsigned long long*>(slot_sum),
+                  static_cast<unsigned long long>(val[j]));
+      } else {
+        atomicAdd(slot_sum, val[j]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. the tile's output offset (warp 0) and its last run's end (warp 1)
+  if (warp == 0) {
+    const long long exclusive =
+        kmd::lookback::exclusive_prefix(scratch, t, aggregate, lane);
+    if (lane == 0) {
+      tile_offset = exclusive;
+      if (t == n_tiles - 1) *n_runs = exclusive + aggregate;
+    }
+  } else if (warp == 1 && F != kDedup && aggregate > 0 && aggregate == n_bound) {
+    const long long edge = min(base + kMwTile, N);
+    const long long at = base + rows[aggregate - 1];
+    int64_t last[NW];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) last[w] = __ldg(keys + w * ld + at);
+    if (F == kCount) {
+      if (lane == 0) last_end = run_end_mw<NW>(keys, ld, N, edge, last);
+    } else {
+      Sum s_c = 0;
+      Sum s_k = 0;
+      for (long long r0 = edge;; r0 += 32) {
+        const long long r = r0 + lane;
+        const bool in = r < N && row_is<NW>(keys, ld, r, last);
+        if (in) {
+          Sum v;
+          bool c;
+          unpack<F>(counts, sample, nb_controls, __ldg(perm + r), v, c);
+          if (c) s_c += v; else s_k += v;
+        }
+        if (__ballot_sync(0xffffffffu, in) != 0xffffffffu) break;
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        s_c += __shfl_xor_sync(0xffffffffu, s_c, o);
+        s_k += __shfl_xor_sync(0xffffffffu, s_k, o);
+      }
+      if (lane == 0) {
+        sums[2 * (aggregate - 1)] += s_c;
+        sums[2 * (aggregate - 1) + 1] += s_k;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 4. the tile's runs at its offset; their key words read at their starts
+  for (int p = threadIdx.x; p < aggregate; p += kThreads) {
+    const long long r = base + rows[p];
+    const long long o = tile_offset + p;
+    if (starts != nullptr) starts[o] = r;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) run_keys[w * out_ld + o] = __ldg(keys + w * ld + r);
+    if (F == kCount) {
+      static_cast<int32_t*>(third)[o] = static_cast<int32_t>(
+          (p + 1 < n_bound ? base + rows[p + 1] : last_end) - r);
+    } else if (F == kFull) {
+      static_cast<longlong2*>(third)[o] = reinterpret_cast<const longlong2*>(sums)[p];
+    } else if (kMerge) {
+      static_cast<int2*>(third)[o] = reinterpret_cast<const int2*>(sums)[p];
+    }
+  }
+}
+
+template <int F>
+void launch_mw(int nw, const Args& a, long long ld, long long out_ld, cudaStream_t stream) {
+  const unsigned grid = static_cast<unsigned>(a.n_tiles);
+  auto* sc = reinterpret_cast<unsigned long long*>(a.scratch);
+  switch (nw) {
+    case 2:
+      run_encode_mw_kernel<F, 2><<<grid, kThreads, 0, stream>>>(
+          a.keys, ld, a.N, a.perm, a.counts, a.sample, a.nb_controls, a.n_tiles, a.starts,
+          a.run_keys, out_ld, a.third, a.n_valid, sc, a.n_runs);
+      break;
+    case 3:
+      run_encode_mw_kernel<F, 3><<<grid, kThreads, 0, stream>>>(
+          a.keys, ld, a.N, a.perm, a.counts, a.sample, a.nb_controls, a.n_tiles, a.starts,
+          a.run_keys, out_ld, a.third, a.n_valid, sc, a.n_runs);
+      break;
+    default:
+      run_encode_mw_kernel<F, 4><<<grid, kThreads, 0, stream>>>(
+          a.keys, ld, a.N, a.perm, a.counts, a.sample, a.nb_controls, a.n_tiles, a.starts,
+          a.run_keys, out_ld, a.third, a.n_valid, sc, a.n_runs);
+  }
+}
+
+}  // namespace
+
+KMD_API long long kmd_run_encode_mw_tile_rows(void) { return kMwTile; }
+
+// keys [nw, N] with row stride ld >= N, 2 <= nw <= 4, rows ascending
+// lexicographically; run_keys [nw, out_ld] with out_ld >= N; every other
+// argument as kmd_run_encode's (scratch: 1 + ceil(N / 1024) words).
+KMD_API int kmd_run_encode_mw(const int64_t* keys, long long ld, long long N, int nw,
+                              int form, const int64_t* perm, const void* counts,
+                              const uint16_t* sample, int nb_controls, int64_t* starts,
+                              int64_t* run_keys, long long out_ld, void* third,
+                              int64_t* n_valid, int64_t* scratch, long long* n_runs,
+                              cudaStream_t stream) {
+  if (N <= 0 || nw < 2 || nw > 4 || ld < N || out_ld < N || form < kDedup ||
+      form > kFull ||
+      (form == kFull && (sample == nullptr ||
+                         reinterpret_cast<unsigned long long>(third) % 16 != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n_tiles = (N + kMwTile - 1) / kMwTile;
+  cudaError_t e = cudaMemsetAsync(scratch, 0, (1 + n_tiles) * sizeof(int64_t), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Args a{keys, N, perm, counts, sample, nb_controls, static_cast<int>(n_tiles),
+               starts, run_keys, third, n_valid, scratch, n_runs};
+  switch (form) {
+    case kDedup: launch_mw<kDedup>(nw, a, ld, out_ld, stream); break;
+    case kCount: launch_mw<kCount>(nw, a, ld, out_ld, stream); break;
+    case kMerge16: launch_mw<kMerge16>(nw, a, ld, out_ld, stream); break;
+    case kMerge32: launch_mw<kMerge32>(nw, a, ld, out_ld, stream); break;
+    default: launch_mw<kFull>(nw, a, ld, out_ld, stream);
+  }
+  e = cudaGetLastError();
+  if (e == cudaSuccess) e = cudaStreamSynchronize(stream);
+  return static_cast<int>(e);
+}

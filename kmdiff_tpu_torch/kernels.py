@@ -16,6 +16,11 @@ The kernels live in ``csrc/*.cu`` beside this file:
   int_gram         K-GRAM  exact 0/1 Gram             (ops.pca)
   irls             K-IRLS  batched logistic IRLS      (ops.glm)
 
+K-EXT, K-RUN, K-ASM and K-GENO also have a multi-word form for k > 32
+(keys of 2-4 u64 words, word-major [nw, N]) in the same source, counted
+under its own name: canonical_kmers_mw, run_bounds_mw, assemble_chunk_mw
+and geno_sample_mw (MULTIWORD maps each to its source).
+
 Each source is compiled with ``nvcc`` for ``sm_90a`` into an object, all of
 them at once in parallel, and the objects are linked into one shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch
@@ -53,6 +58,10 @@ KERNELS = ("lrt_filter", "canonical_kmers", "run_bounds", "compact",
            "assemble_chunk", "weighted_runs", "abundance_hist", "run_rows",
            "geno_sample", "int_gram", "irls")
 
+#: the multi-word forms' launch-count names -> the kernel (source) of each
+MULTIWORD = {"canonical_kmers_mw": "canonical_kmers", "run_bounds_mw": "run_bounds",
+             "assemble_chunk_mw": "assemble_chunk", "geno_sample_mw": "geno_sample"}
+
 #: -fmad=false and no --use_fast_math: the LR margin assumes IEEE logf,
 #: division and unfused multiply-adds (kmdiff_tpu/ops/lrt.py:41-46);
 #: -Xptxas -v reports each kernel's registers, spills and shared memory
@@ -73,18 +82,25 @@ _SIGNATURES = {
     "kmd_lrt_filter": (_i, [_vp, _ll, _i, _i, _i, _f, _f, _f, _vp, _vp, _vp, _vp, _vp]),
     "kmd_canonical_kmers_tile_windows": (_ll, []),
     "kmd_canonical_kmers": (_i, [_vp, _ll, _i, _vp, _vp]),
+    "kmd_canonical_kmers_mw": (_i, [_vp, _ll, _i, _vp, _vp]),
     "kmd_run_encode_tile_rows": (_ll, [_i]),
     "kmd_run_encode": (_i, [_vp, _ll, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp,
                             _vp, _vp, _vp]),
+    "kmd_run_encode_mw_tile_rows": (_ll, []),
+    "kmd_run_encode_mw": (_i, [_vp, _ll, _ll, _i, _i, _vp, _vp, _vp, _i, _vp, _vp,
+                               _ll, _vp, _vp, _vp, _vp, _vp]),
     "kmd_compact_tile_rows": (_ll, []),
     "kmd_compact": (_i, [_vp, _ll, _vp, _vp, _vp, _vp, _vp, _vp]),
     "kmd_assemble_chunk_tile_rows": (_ll, []),
     "kmd_assemble_chunk": (_i, [_vp, _vp, _vp, _i, _i, _ll, _i, _vp, _vp, _vp, _vp]),
+    "kmd_assemble_chunk_mw": (_i, [_vp, _vp, _vp, _i, _i, _ll, _i, _i, _vp, _vp, _vp,
+                                   _vp]),
     "kmd_weighted_run_sums": (_i, [_vp, _ll, _vp, _vp, _vp, _vp, _vp]),
     "kmd_count_stats_scratch_words": (_ll, []),
     "kmd_count_stats": (_i, [_vp, _ll, _i, _i, _vp, _vp, _vp, _vp]),
     "kmd_run_rows": (_i, [_vp, _ll, _vp, _vp, _ll, _vp, _vp, _vp, _i, _i, _vp, _vp]),
     "kmd_geno_sample": (_i, [_vp, _ll, _u, _u, _vp, _vp]),
+    "kmd_geno_sample_mw": (_i, [_vp, _ll, _ll, _i, _u, _u, _vp, _vp]),
     "kmd_int_gram": (_i, [_vp, _ll, _i, _vp, _vp, _vp]),
     "kmd_irls_max_features": (_i, []),
     "kmd_irls_layout": (_ll, [_i, _i, _i, _i, _ll, _vp, _vp]),
@@ -100,7 +116,7 @@ class _Launches:
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._n = dict.fromkeys(KERNELS, 0)
+        self._n = dict.fromkeys((*KERNELS, *MULTIWORD), 0)
 
     def add(self, name: str) -> None:
         with self._lock:
@@ -108,7 +124,7 @@ class _Launches:
 
     def reset(self) -> None:
         with self._lock:
-            self._n = dict.fromkeys(KERNELS, 0)
+            self._n = dict.fromkeys((*KERNELS, *MULTIWORD), 0)
 
     def snapshot(self) -> dict[str, int]:
         with self._lock:
@@ -235,6 +251,21 @@ def launch(kernel: str, entry: str, *args) -> None:
 
 def ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
+
+
+def require_cuda_rows(name: str, t: torch.Tensor) -> int:
+    """Check a multi-word key tensor, [nw, N] int64 on the card with
+    2 <= nw <= 4 and unit stride along N (a row slice of a wider buffer is
+    taken); returns its row stride."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int64 or t.dim() != 2 or not 2 <= t.shape[0] <= 4:
+        raise TypeError(f"{name}: expected [nw, N] int64 with 2 <= nw <= 4, got "
+                        f"{t.dtype} {tuple(t.shape)}")
+    if t.shape[1] > 1 and t.stride(1) != 1 or t.stride(0) < t.shape[1]:
+        raise ValueError(f"{name}: expected unit stride along the rows and "
+                         "disjoint rows")
+    return t.stride(0)
 
 
 def require_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:

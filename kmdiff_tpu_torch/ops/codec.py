@@ -1,17 +1,24 @@
 """k-mer codec and counting on the device (port of kmdiff_tpu/ops/codec.py).
 
-Keys. The JAX package carries a k-mer as u32 lanes (hi, lo) sorted
-lexicographically. Here a k-mer (k <= 32, one u64 word in the
+Keys. The JAX package carries a k-mer as u32 lanes (hi, lo per u64 word)
+sorted lexicographically. Here a k-mer of k <= 32 (one u64 word in the
 core/kmer.py::pack_codes layout) is one int64 key: the word XORed with
 1<<63, so signed int64 order equals the unsigned word order and
 ``torch.sort`` sorts keys as the lanes sort. The all-ones word (XORed:
 INT64_MAX, ``SENTINEL``) marks invalid windows; no canonical k-mer equals
-it, and it sorts last.
+it, and it sorts last. A k-mer of 33 <= k <= 128 takes nw = 2-4 words
+(word 0 holds bases 0-31, the last word is right-aligned): its keys are a
+word-major int64 tensor [nw, N], row w holding word w of every k-mer, each
+XORed with 1<<63; rows sort lexicographically (``sort_rows``: stable
+``torch.sort`` passes from the last word to the first), and the sentinel
+row has every word INT64_MAX. Every function below takes either form and
+returns the same form.
 
 Kernels, each with its plain PyTorch twin in this module (the wrapper runs
-the twin for a CPU tensor and the CUDA kernel for a CUDA tensor):
+the twin for a CPU tensor and the CUDA kernel for a CUDA tensor), and each
+of K-EXT and K-RUN with a multi-word form beside the one-word one:
 
-  K-EXT canonical_kmers   codes [N] u8 -> keys [N-k+1] int64
+  K-EXT canonical_kmers   codes [N] u8 -> keys [N-k+1] int64, or [nw, N-k+1]
   K-RUN run_encode        sorted keys -> run keys, run starts (unless the
                           caller needs none), valid-row
                           count, and run lengths or (through the sort's
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 from kmdiff_tpu_torch import kernels
+from kmdiff_tpu_torch.core.kmer import n_words
 
 #: sentinel code for invalid bases and read separators (codes are 0..3)
 INVALID = np.uint8(0xFF)
@@ -51,7 +59,7 @@ INVALID = np.uint8(0xFF)
 SENTINEL = torch.iinfo(torch.int64).max
 #: 1<<63 as an int64 (the order-preserving flip between u64 words and keys)
 _SIGN = torch.iinfo(torch.int64).min
-MAX_K = 32
+MAX_K = 128
 #: abundance bins: 1..255 one value each, 256 for every count above 255
 HIST_BINS = 257
 _U32 = 0xFFFFFFFF
@@ -68,19 +76,47 @@ def encode_ascii_block(seq_bytes: np.ndarray) -> np.ndarray:
 
 
 def words_to_keys(kmers: np.ndarray) -> np.ndarray:
-    """[n, 1] u64 words -> [n] int64 sort keys."""
-    if kmers.ndim != 2 or kmers.shape[1] != 1:
-        raise NotImplementedError(
-            "int64 keys hold one word (k <= 32); multi-word k-mers are "
-            "ROADMAP.md port queue item 2 (k > 32)"
-        )
-    return (kmers[:, 0] ^ np.uint64(1 << 63)).view(np.int64)
+    """[n, nw] u64 words -> [n] int64 sort keys (nw = 1) or [nw, n]
+    int64 word-major keys (nw = 2-4)."""
+    if kmers.ndim != 2 or not 1 <= kmers.shape[1] <= 4:
+        raise ValueError(f"words_to_keys: expected [n, 1-4] words, got "
+                         f"{kmers.shape}")
+    if kmers.shape[1] == 1:
+        return (kmers[:, 0] ^ np.uint64(1 << 63)).view(np.int64)
+    return np.ascontiguousarray((kmers ^ np.uint64(1 << 63)).view(np.int64).T)
 
 
 def keys_to_words(keys: np.ndarray) -> np.ndarray:
-    """[n] int64 sort keys -> [n, 1] u64 words."""
-    return (np.asarray(keys, np.int64).view(np.uint64)
-            ^ np.uint64(1 << 63)).reshape(-1, 1)
+    """[n] int64 sort keys -> [n, 1] u64 words; [nw, n] word-major keys ->
+    [n, nw] u64 words."""
+    keys = np.asarray(keys, np.int64)
+    if keys.ndim == 1:
+        return (keys.view(np.uint64) ^ np.uint64(1 << 63)).reshape(-1, 1)
+    return np.ascontiguousarray((keys.view(np.uint64) ^ np.uint64(1 << 63)).T)
+
+
+def sort_rows(keys: torch.Tensor):
+    """Lexicographic sort of [nw, N] word-major keys -> (sorted keys [nw,
+    N], the permutation [N] int64): stable torch.sort passes from the last
+    word to the first, each composing the permutation."""
+    perm = None
+    for w in range(keys.shape[0] - 1, -1, -1):
+        col = keys[w] if perm is None else keys[w][perm]
+        p = torch.sort(col, stable=True).indices
+        perm = p if perm is None else perm[p]
+    if perm is None:
+        perm = torch.zeros(0, dtype=torch.int64, device=keys.device)
+    return keys[:, perm], perm
+
+
+def sort_keys(keys: torch.Tensor):
+    """torch.sort of one-word keys, sort_rows of multi-word ones -> (sorted
+    keys, permutation)."""
+    if keys.dim() == 1:
+        return torch.sort(keys)
+    return sort_rows(keys)
+
+
 
 
 # -- K-EXT ---------------------------------------------------------------------
@@ -108,13 +144,52 @@ def canonical_kmers_plain(codes: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(ok, canon, SENTINEL)
 
 
+def canonical_kmers_mw_plain(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """The multi-word twin (33 <= k <= 128): the k-step ladder of shifted
+    ORs over nw words (kmdiff_tpu/ops/codec.py::_lane_shift's layout), the
+    lexicographic min of forward and reverse complement; the sentinel row
+    where the window holds an INVALID code -> [nw, N-k+1] int64."""
+    nw = n_words(k)
+    N = codes.numel()
+    W = max(N - k + 1, 0)
+    dev = codes.device
+    if W == 0:
+        return torch.empty((nw, 0), dtype=torch.int64, device=dev)
+    bad = codes == int(INVALID)
+    cum = torch.zeros(N + 1, dtype=torch.int64, device=dev)
+    cum[1:] = torch.cumsum(bad.to(torch.int64), 0)
+    ok = (cum[k:] - cum[:-k]) == 0
+    base = torch.where(bad, 0, codes.to(torch.int64) & 3)
+    fwd = torch.zeros((nw, W), dtype=torch.int64, device=dev)
+    rc = torch.zeros((nw, W), dtype=torch.int64, device=dev)
+
+    def at(i):  # (word, shift) of base i
+        w = i // 32
+        return w, 2 * (min(k, 32 * (w + 1)) - 1 - i)
+
+    for j in range(k):
+        cj = base[j : j + W]
+        w, sh = at(j)
+        fwd[w] |= cj << sh
+        w, sh = at(k - 1 - j)
+        rc[w] |= (cj ^ 2) << sh
+    fwd ^= _SIGN  # signed order of the flipped words = unsigned word order
+    rc ^= _SIGN
+    take_rc = torch.zeros(W, dtype=torch.bool, device=dev)
+    undecided = torch.ones(W, dtype=torch.bool, device=dev)
+    for w in range(nw):
+        take_rc |= undecided & (rc[w] < fwd[w])
+        undecided &= rc[w] == fwd[w]
+    return torch.where(ok & ~take_rc, fwd, torch.where(ok, rc, SENTINEL))
+
+
 def canonical_kmers(codes: torch.Tensor, k: int) -> torch.Tensor:
-    """K-EXT: codes [N] u8 -> canonical keys [N-k+1] int64."""
+    """K-EXT: codes [N] u8 -> canonical keys [N-k+1] int64 (k <= 32), or
+    [nw, N-k+1] int64 word-major (33 <= k <= 128: the multi-word form)."""
     if not 1 <= k <= MAX_K:
-        raise NotImplementedError(
-            f"k={k}: the port's keys cover 1 <= k <= 32; k > 32 is "
-            "ROADMAP.md port queue item 2"
-        )
+        raise ValueError(f"k={k}: the port's keys cover 1 <= k <= {MAX_K}")
+    if k > 32:
+        return _canonical_kmers_mw(codes, k)
     if codes.device.type == "cpu":
         return canonical_kmers_plain(codes, k)
     kernels.require_cuda_tensor("canonical_kmers codes", codes, torch.uint8)
@@ -128,14 +203,33 @@ def canonical_kmers(codes: torch.Tensor, k: int) -> torch.Tensor:
     return keys
 
 
+def _canonical_kmers_mw(codes: torch.Tensor, k: int) -> torch.Tensor:
+    if codes.device.type == "cpu":
+        return canonical_kmers_mw_plain(codes, k)
+    kernels.require_cuda_tensor("canonical_kmers codes", codes, torch.uint8)
+    N = codes.numel()
+    W = max(N - k + 1, 0)
+    keys = torch.empty((n_words(k), W), dtype=torch.int64, device=codes.device)
+    if W:
+        with torch.cuda.device(codes.device):
+            kernels.launch("canonical_kmers_mw", "kmd_canonical_kmers_mw",
+                           codes.data_ptr(), N, k, keys.data_ptr())
+    return keys
+
+
 # -- K-RUN ---------------------------------------------------------------------
 # The plain twin composes the run's steps one tensor at a time: flags, K-CMP's
 # twin, then the lengths or the group sums.
 
 def run_flags_plain(keys: torch.Tensor):
-    valid = keys != SENTINEL
-    flags = valid.clone()
-    flags[1:] &= keys[1:] != keys[:-1]
+    if keys.dim() == 1:
+        valid = keys != SENTINEL
+        flags = valid.clone()
+        flags[1:] &= keys[1:] != keys[:-1]
+    else:  # a row is valid where any word is not the sentinel's
+        valid = (keys != SENTINEL).any(0)
+        flags = valid.clone()
+        flags[1:] &= (keys[:, 1:] != keys[:, :-1]).any(0)
     n_valid = valid.sum(dtype=torch.int64).reshape(1)
     return flags, n_valid
 
@@ -181,7 +275,8 @@ def run_group_sums_plain(starts, n_valid, perm, count, sample=None,
 def run_encode_plain(keys_s, perm=None, count=None, lengths: bool = False,
                      starts: bool = True, sample=None, nb_controls: int = 0):
     flags, n_valid = run_flags_plain(keys_s)
-    run_starts, run_keys = compact_plain(flags, keys_s)
+    run_starts = compact_plain(flags)[0]
+    run_keys = keys_s[..., run_starts]
     if count is not None:
         third = run_group_sums_plain(run_starts, n_valid, perm, count, sample,
                                      nb_controls)
@@ -222,12 +317,20 @@ def run_encode(keys_s: torch.Tensor, perm: torch.Tensor | None = None,
     One kernel, one memset and one host sync (U sizes the results): one
     allocation holds the outputs at N rows each and the kernel's scratch,
     and the results are views of it, which hold the whole allocation until
-    all are freed."""
+    all are freed.
+
+    Multi-word keys (k > 32): keys_s [nw, N] sorted lexicographically (a
+    view whose rows have unit stride is taken) -> run keys [nw, U], a
+    [:, :U] view of nw rows of N words, from K-RUN's multi-word form; a
+    row starts a run where any word differs from the row before it."""
     if keys_s.device.type == "cpu":
         return run_encode_plain(keys_s, perm, count, lengths, starts, sample,
                                 nb_controls)
-    kernels.require_cuda_tensor("run_encode keys", keys_s, torch.int64)
-    N = keys_s.numel()
+    if keys_s.dim() == 1:
+        kernels.require_cuda_tensor("run_encode keys", keys_s, torch.int64)
+        N = keys_s.numel()
+    else:
+        N = keys_s.shape[1]
     if count is None:
         form = 1 if lengths else 0
     else:
@@ -245,6 +348,9 @@ def run_encode(keys_s: torch.Tensor, perm: torch.Tensor | None = None,
             raise ValueError(f"run_encode: {N} keys, {perm.numel()} perm, "
                              f"{count.numel()} counts")
         form = _FULL_FORM if full else _MERGE_FORMS[count.dtype]
+    if keys_s.dim() == 2:
+        return _run_encode_mw(keys_s, N, form, perm, count, starts, sample,
+                              nb_controls)
     n_tiles = -(-N // _run_tile_rows(form))
     # int64 words: [run keys: N][n_valid: 1][scratch: 1 + n_tiles]
     # [starts: N, if asked for][lengths: N int32 | sums: N x 2 int32 |
@@ -272,14 +378,63 @@ def run_encode(keys_s: torch.Tensor, perm: torch.Tensor | None = None,
         U = n_runs.value
     else:
         n_valid.zero_()
-    third = None
-    if form == 1:
-        third = buf[third_at:].view(torch.int32)[:U]
-    elif form == _FULL_FORM:
-        third = buf[third_at : third_at + 2 * U].view(U, 2)
-    elif form > 1:
-        third = buf[third_at:].view(torch.int32)[: 2 * U].view(U, 2)
+    third = _third(buf, form, third_at, U)
     return buf[at : at + U] if starts else None, buf[:U], n_valid, third
+
+
+def _third(buf: torch.Tensor, form: int, third_at: int, U: int):
+    """K-RUN's third output, a view of its buffer from word third_at: the
+    lengths [U] int32 (count form), the [U, 2] int32 or int64 sums (merge
+    and full forms), or None (dedup form)."""
+    if form == 1:
+        return buf[third_at:].view(torch.int32)[:U]
+    if form == _FULL_FORM:
+        return buf[third_at : third_at + 2 * U].view(U, 2)
+    if form > 1:
+        return buf[third_at:].view(torch.int32)[: 2 * U].view(U, 2)
+    return None
+
+
+def _run_encode_mw(keys_s, N: int, form: int, perm, count, starts: bool,
+                   sample, nb_controls: int):
+    """K-RUN's multi-word form: run_encode on [nw, N] keys -> run keys
+    [nw, U], a [:, :U] view of rows of N words; the rest as run_encode's."""
+    ld = kernels.require_cuda_rows("run_encode keys", keys_s)
+    nw = keys_s.shape[0]
+    n_tiles = -(-N // _run_mw_tile_rows())
+    # int64 words: [run keys: nw x N][n_valid: 1][scratch: 1 + n_tiles]
+    # [starts: N, if asked for][third, as run_encode's]
+    at = nw * N + 2 + n_tiles
+    third_at = at + N if starts else at
+    third_words = (0, (N + 1) // 2, N, N, 2 * N)[form]
+    buf = torch.empty(third_at + third_words + (form == _FULL_FORM),
+                      dtype=torch.int64, device=keys_s.device)
+    if form == _FULL_FORM and (buf.data_ptr() + 8 * third_at) % 16:
+        third_at += 1
+    n_valid = buf[nw * N : nw * N + 1]
+    U = 0
+    if N:
+        n_runs = _count_slot()
+        base = buf.data_ptr()
+        with torch.cuda.device(keys_s.device):
+            kernels.launch("run_bounds_mw", "kmd_run_encode_mw", keys_s.data_ptr(),
+                           ld, N, nw, form, kernels.ptr(perm), kernels.ptr(count),
+                           kernels.ptr(sample), nb_controls,
+                           base + 8 * at if starts else None, base, N,
+                           base + 8 * third_at if third_words else None,
+                           base + 8 * nw * N, base + 8 * (nw * N + 1),
+                           ctypes.addressof(n_runs))
+        U = n_runs.value
+    else:
+        n_valid.zero_()
+    run_keys = buf[: nw * N].view(nw, N)[:, :U]
+    return (buf[at : at + U] if starts else None, run_keys, n_valid,
+            _third(buf, form, third_at, U))
+
+
+@functools.cache
+def _run_mw_tile_rows() -> int:
+    return kernels.lib().kmd_run_encode_mw_tile_rows()
 
 
 # -- K-CMP ---------------------------------------------------------------------
@@ -443,7 +598,7 @@ def sort_rle(keys: torch.Tensor, with_hist: bool = False):
     [U] int32), and with_hist also RleStats with the histogram (K-HIST).
     Sentinel keys are dropped. The keys and counts are [:U] views of
     K-RUN's buffer, which writes no run starts here."""
-    _, run_keys, n_valid, counts = run_encode(torch.sort(keys).values,
+    _, run_keys, n_valid, counts = run_encode(sort_keys(keys)[0],
                                               lengths=True, starts=False)
     if not with_hist:
         return run_keys, counts
@@ -454,6 +609,9 @@ def keep_at_least(keys: torch.Tensor, counts: torch.Tensor, hard_min: int):
     """The rows whose count (int64, or int32 holding u32) is >= hard_min,
     in order (K-CMP)."""
     c64 = counts if counts.dtype == torch.int64 else _u32(counts)
+    if keys.dim() == 2:
+        idx, _ = compact(c64 >= hard_min)
+        return keys[:, idx], counts[idx]
     idx, kept = compact(c64 >= hard_min, keys)
     return kept, counts[idx]
 
@@ -471,7 +629,7 @@ def dedup_sum(keys: torch.Tensor, weights: torch.Tensor, hard_min: int = 1,
     (K-HIST on the int64 sums). Each sum
     must fit the u32 of the count files (as the JAX package's wrapped-u32
     sums assume); OverflowError otherwise."""
-    keys_s, perm = torch.sort(keys)
+    keys_s, perm = sort_keys(keys)
     starts, run_keys, n_valid, _ = run_encode(keys_s)
     sums = weighted_run_sums(starts, n_valid, perm, weights)
     if hard_min > 1:

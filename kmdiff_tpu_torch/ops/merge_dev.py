@@ -41,7 +41,13 @@ import numpy as np
 import torch
 
 from kmdiff_tpu_torch import kernels
-from kmdiff_tpu_torch.ops.codec import _run_ends, compact, run_encode, words_to_keys
+from kmdiff_tpu_torch.ops.codec import (
+    _run_ends,
+    compact,
+    run_encode,
+    sort_keys,
+    words_to_keys,
+)
 from kmdiff_tpu_torch.ops.lrt_kernel import lrt_filter
 
 _U32 = 0xFFFFFFFF
@@ -52,14 +58,19 @@ def _merge_runs(keys, count, ratio_c, ratio_k, lr_min, starts: bool,
                 sample=None, nb_controls: int = 0):
     """The merge and test both branches share: sort, runs (their starts
     only if asked for), group sums (int64 with sample ids), K-LRT,
-    survivors."""
-    keys_s, perm = torch.sort(keys)
+    survivors (multi-word keys: K-CMP's index form, then a gather a
+    word)."""
+    keys_s, perm = sort_keys(keys)
     starts, run_keys, n_valid, sums = run_encode(keys_s, perm, count,
                                                  starts=starts, sample=sample,
                                                  nb_controls=nb_controls)
     keep, _lr, _s_c, _s_k = lrt_filter(sums, 1, ratio_c, ratio_k, lr_min,
                                        want_lr=False, want_sums=False)
-    hit, hit_keys = compact(keep, run_keys)
+    if keys_s.dim() == 1:
+        hit, hit_keys = compact(keep, run_keys)
+    else:
+        hit, _ = compact(keep)
+        hit_keys = run_keys[:, hit]
     return perm, n_valid, starts, run_keys, sums, hit, hit_keys
 
 
@@ -67,13 +78,13 @@ def merge_lrt(keys: torch.Tensor, count: torch.Tensor, ratio_c, ratio_k,
               lr_min):
     """One chunk's merged test (merge_lrt_kernel's packed branch).
 
-    keys [N] int64 (any order), count [N] int16 or int32 packed as
-    build_triples_packed packs it. Returns (n_distinct, hit_keys [H]
-    int64 ascending, hit_sums [H, 2] int32) with the survivors on the
-    keys' device."""
+    keys [N] int64 or [nw, N] (any order), count [N] int16 or int32
+    packed as build_triples_packed packs it. Returns (n_distinct, hit_keys
+    [H] int64 or [nw, H] ascending, hit_sums [H, 2] int32) with the
+    survivors on the keys' device."""
     _p, _nv, _st, run_keys, sums, hit, hit_keys = _merge_runs(
         keys, count, ratio_c, ratio_k, lr_min, starts=False)
-    return run_keys.numel(), hit_keys, sums[hit]
+    return run_keys.shape[-1], hit_keys, sums[hit]
 
 
 def merge_lrt_full(keys: torch.Tensor, count: torch.Tensor,
@@ -83,8 +94,8 @@ def merge_lrt_full(keys: torch.Tensor, count: torch.Tensor,
     """One chunk's merged test with sample ids (merge_lrt_kernel with
     packed_ctrl=False: want_rows, want_geno, wide_sums).
 
-    keys [N] int64, count [N] int32 holding raw u32 counts and sample [N]
-    int16 (u16 stream ids below nb_samples, those below nb_controls
+    keys [N] int64 or [nw, N], count [N] int32 holding raw u32 counts and
+    sample [N] int16 (u16 stream ids below nb_samples, those below nb_controls
     controls), as build_triples builds them. Returns (n_distinct, hit_keys
     [H] int64 ascending, hit_sums [H, 2] int64, hit_rows [H, S] int32
     holding u32 or None, geno_rows [G, S] uint8 or None): the survivors'
@@ -101,7 +112,7 @@ def merge_lrt_full(keys: torch.Tensor, count: torch.Tensor,
         sel, _ = compact(geno_sample(run_keys, pca_thr, pca_seed))
         geno = run_rows(starts, n_valid, sel, perm, count, sample, nb_samples,
                         presence=True)
-    return run_keys.numel(), hit_keys, sums[hit], rows, geno
+    return run_keys.shape[-1], hit_keys, sums[hit], rows, geno
 
 
 def pca_threshold_u32(rate: float) -> np.uint32:
@@ -126,20 +137,35 @@ def _avalanche(h: torch.Tensor) -> torch.Tensor:
 
 
 def geno_sample_plain(keys: torch.Tensor, thr, seed: int) -> torch.Tensor:
-    hi = ((keys >> 32) & _U32) ^ 0x80000000  # the word's top half (key ^ 1<<63)
-    lo = keys & _U32
-    h = torch.full_like(keys, (_SAMPLE_SEED ^ int(seed)) & _U32)
-    h = _avalanche(hi ^ h)
-    h = _avalanche(lo ^ h)
+    """The hash chain over each word's hi32 then lo32, most significant
+    word first (one-word keys [U] or multi-word [nw, U])."""
+    rows = keys.reshape(1, -1) if keys.dim() == 1 else keys
+    h = torch.full_like(rows[0], (_SAMPLE_SEED ^ int(seed)) & _U32)
+    for word in rows:
+        hi = ((word >> 32) & _U32) ^ 0x80000000  # the top half of key ^ 1<<63
+        h = _avalanche(hi ^ h)
+        h = _avalanche((word & _U32) ^ h)
     return h < int(thr)
 
 
 def geno_sample(keys: torch.Tensor, thr, seed: int) -> torch.Tensor:
     """K-GENO: keys [U] int64 -> [U] bool, set where the k-mer's avalanche
     hash under seed falls below thr (u32). The mask of the JAX package's
-    host sample_mask and of its device merge, for every layout."""
+    host sample_mask and of its device merge, for every layout.
+    Multi-word keys [nw, U] (a view whose rows have unit stride is taken)
+    chain over every word, K-GENO's multi-word form."""
     if keys.device.type == "cpu":
         return geno_sample_plain(keys, thr, seed)
+    if keys.dim() == 2:
+        ld = kernels.require_cuda_rows("geno_sample keys", keys)
+        U = keys.shape[1]
+        mask = torch.empty(U, dtype=torch.bool, device=keys.device)
+        if U:
+            with torch.cuda.device(keys.device):
+                kernels.launch("geno_sample_mw", "kmd_geno_sample_mw",
+                               keys.data_ptr(), ld, U, keys.shape[0], int(thr),
+                               int(seed) & _U32, mask.data_ptr())
+        return mask
     kernels.require_cuda_tensor("geno_sample keys", keys, torch.int64)
     U = keys.numel()
     mask = torch.empty(U, dtype=torch.bool, device=keys.device)
@@ -210,20 +236,21 @@ def pack16_ok(counts_list: list[np.ndarray]) -> bool:
 def build_triples_packed(kmers_list: list[np.ndarray],
                          counts_list: list[np.ndarray], nb_controls: int,
                          pack16: bool = False):
-    """Host: per-stream sorted (kmers [n, 1] u64, counts [n] u32) -> (keys
-    [N] int64, packed counts [N], N). Streams before nb_controls are
+    """Host: per-stream sorted (kmers [n, nw] u64, counts [n] u32) -> (keys
+    [N] int64, or [nw, N] for nw > 1, packed counts [N], N). Streams before nb_controls are
     controls: their flag is bit 15 of an int16 (pack16; counts < 2^15,
     see pack16_ok) or the sign bit of an int32. No padding: the device
     takes any N."""
     N = int(sum(len(k) for k in kmers_list))
-    keys = np.empty(N, np.int64)
+    nw = kmers_list[0].shape[1] if kmers_list else 1
+    keys = np.empty(N if nw == 1 else (nw, N), np.int64)
     count = np.empty(N, np.int16 if pack16 else np.int32)
     pos = 0
     for s, (k, c) in enumerate(zip(kmers_list, counts_list)):
         n = len(k)
         if n == 0:
             continue
-        keys[pos : pos + n] = words_to_keys(k)
+        keys[..., pos : pos + n] = words_to_keys(k)
         if pack16:
             cu = c.astype(np.uint16)
             if s < nb_controls:
@@ -238,8 +265,8 @@ def build_triples_packed(kmers_list: list[np.ndarray],
 
 
 def build_triples(kmers_list: list[np.ndarray], counts_list: list[np.ndarray]):
-    """Host: per-stream sorted (kmers [n, 1] u64, counts [n] u32) -> (keys
-    [N] int64, raw counts [N] int32 holding u32, sample ids [N] int16
+    """Host: per-stream sorted (kmers [n, nw] u64, counts [n] u32) -> (keys
+    [N] int64 or [nw, N], raw counts [N] int32 holding u32, sample ids [N] int16
     holding u16, N), the full branch's operands (merge_lrt_full): no
     control flag, which the merge reads from the sample id."""
     S = len(kmers_list)

@@ -1,12 +1,13 @@
 """k-mer counting: reads -> kmtricks-compatible run directory (port of
-kmdiff_tpu/pipeline/count.py, single device, k <= 32).
+kmdiff_tpu/pipeline/count.py, single device, 8 <= k <= 128).
 
 Per sample:
 
   FASTA/FASTQ(.gz) -> 2-bit codes (files joined by one INVALID separator)
   -> chunks of <= SORT_ROWS windows with k-1 codes of overlap -> per chunk,
-  on the device: canonical keys (K-EXT), torch.sort, run starts and
-  lengths (K-RUN, K-CMP) -> distinct keys and counts back to the host ->
+  on the device: canonical keys (K-EXT), torch.sort (k > 32: of [nw, N]
+  word-major keys, codec.sort_rows), run lengths (K-RUN, in its
+  multi-word form for k > 32) -> distinct keys and counts back to the host ->
   native k-way merge of the chunks -> host partition ids and a stable
   regroup -> abundance histogram (before hard-min) -> hard-min -> sorted
   per-partition count files (counts/partition_P/<id>.kmer.lz4).
@@ -35,7 +36,8 @@ from kmdiff_tpu_torch.io.kmtricks import (
 )
 from kmdiff_tpu_torch.utils.exceptions import InputError
 from kmdiff_tpu_torch.utils.logging import logger
-from kmdiff_tpu_torch.ops.codec import INVALID, MAX_K, fused_count, keys_to_words
+from kmdiff_tpu_torch.core.kmer import n_words
+from kmdiff_tpu_torch.ops.codec import INVALID, fused_count, keys_to_words
 
 #: windows per device chunk. A chunk's int64 keys, their sorted copy and
 #: the sort's scratch take ~32 bytes a window, so 2^24 windows need ~0.5 GB:
@@ -129,11 +131,11 @@ def _regroup_by_partition(kmers, counts, nb_partitions):
 
 def count_sample_device(all_codes: list[np.ndarray], k: int,
                         nb_partitions: int, device: torch.device):
-    """Count one sample's code arrays on `device`. Returns (kmers [U, 1]
+    """Count one sample's code arrays on `device`. Returns (kmers [U, nw]
     u64 sorted by (part, kmer), parts [U] u32, counts [U] u32)."""
     chunks = _host_code_chunks(all_codes, k, SORT_ROWS)
     if not chunks:
-        return (np.zeros((0, 1), np.uint64), np.zeros(0, np.uint32),
+        return (np.zeros((0, n_words(k)), np.uint64), np.zeros(0, np.uint32),
                 np.zeros(0, np.uint32))
     streams = [fetch_stream(*fused_count(torch.from_numpy(c).to(device), k))
                for c in chunks]
@@ -142,8 +144,9 @@ def count_sample_device(all_codes: list[np.ndarray], k: int,
 
 
 def fetch_stream(keys: torch.Tensor, counts: torch.Tensor):
-    """A counted stream on the device (int64 keys, int32 counts holding
-    u32) -> (kmers [U, 1] u64, counts [U] u32) on the host."""
+    """A counted stream on the device (int64 keys [U] or [nw, U], int32
+    counts holding u32) -> (kmers [U, nw] u64, counts [U] u32) on the
+    host."""
     return (keys_to_words(keys.cpu().numpy()),
             counts.cpu().numpy().view(np.uint32))
 
@@ -165,11 +168,6 @@ def count_sample(paths: list[str], k: int, nb_partitions: int,
     (kmers sorted by (part, kmer), parts, counts), before hard-min."""
     from kmdiff_tpu_torch.io.fasta import flat_codes
 
-    if k > MAX_K:
-        raise NotImplementedError(
-            f"k={k}: the port counts k <= 32; k > 32 is ROADMAP.md port "
-            "queue item 2"
-        )
     all_codes = [c for c in (flat_codes(p) for p in paths) if len(c)]
     return count_sample_device(all_codes, k, nb_partitions, device)
 

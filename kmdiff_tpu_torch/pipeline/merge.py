@@ -188,11 +188,6 @@ class PartitionProcessor:
         kmers_list, counts_list, ksize = [], [], 0
         for path in paths:
             info, kmers, counts = read_kmer_file(path)
-            if info.kmer_size > 32:
-                raise NotImplementedError(
-                    f"k={info.kmer_size}: the port merges k <= 32; k > 32 "
-                    "is ROADMAP.md port queue item 2"
-                )
             ksize = info.kmer_size
             kmers_list.append(kmers)
             counts_list.append(counts)
@@ -320,7 +315,7 @@ class PartitionProcessor:
                            sample: torch.Tensor | None = None,
                            geno_sink: list | None = None,
                            matrix_sink: list | None = None) -> PartitionResult:
-        """One chunk already on the device: keys [N] int64 and packed
+        """One chunk already on the device: keys [N] int64 (or [nw, N]) and packed
         counts [N] (merge_dev.build_triples_packed's packing) -> merge and
         filter there (merge_dev.merge_lrt), rescore the survivors in f64 on
         the host, push them to acc; the caller finishes acc. The count+diff
@@ -393,8 +388,8 @@ class PartitionProcessor:
 
     @staticmethod
     def _unpack_blob(hit_keys: torch.Tensor, hit_sums: torch.Tensor):
-        """Survivors on the device -> (kmers [H, 1] u64, s_c, s_k exact
-        int64) on the host; the sums int32 (packed merge) or int64 (full
+        """Survivors on the device (keys [H] or [nw, H]) -> (kmers [H, nw]
+        u64, s_c, s_k exact int64) on the host; the sums int32 (packed merge) or int64 (full
         merge)."""
         sums = hit_sums.cpu().numpy().astype(np.int64)
         return keys_to_words(hit_keys.cpu().numpy()), sums[:, 0], sums[:, 1]

@@ -50,8 +50,8 @@ def test_canonical_kmers_match_jax_extraction(k):
 
 def test_canonical_kmers_short_input_and_k_range():
     assert codec.canonical_kmers(torch.zeros(3, dtype=torch.uint8), 5).numel() == 0
-    with pytest.raises(NotImplementedError, match="k > 32"):
-        codec.canonical_kmers(torch.zeros(64, dtype=torch.uint8), 33)
+    with pytest.raises(ValueError, match="k=129"):
+        codec.canonical_kmers(torch.zeros(200, dtype=torch.uint8), 129)
 
 
 @pytest.mark.parametrize("k", [5, 31])
@@ -175,8 +175,10 @@ def test_host_helpers_match_jax():
     np.testing.assert_array_equal(np.argsort(keys, kind="stable"),
                                   np.lexsort((lo, hi)))
     np.testing.assert_array_equal(codec.keys_to_words(keys), words)
-    with pytest.raises(NotImplementedError, match="k > 32"):
-        codec.words_to_keys(np.zeros((3, 2), np.uint64))
+    # multi-word k-mers round-trip through [nw, n] word-major keys
+    two = np.stack([words[:, 0], words[::-1, 0]], 1)
+    assert codec.words_to_keys(two).shape == (2, len(two))
+    np.testing.assert_array_equal(codec.keys_to_words(codec.words_to_keys(two)), two)
 
 
 def test_code_chunks_cover_every_window_once():

@@ -23,7 +23,14 @@ a row), K-ROWS on counts of 2^31 and 2^32 - 1, K-ASM given no control
 streams; K-GRAM at 0, 1 and ragged row
 counts and S from 1 to 200; K-IRLS with singular, separable and
 max-iteration items, F up to 64 and a design above 48 KB of shared memory,
-and each item's outputs bit-identical alone and among 1,023 others.
+and each item's outputs bit-identical alone and among 1,023 others; the
+multi-word forms (k > 32, [nw, N] word-major keys) at nw = 2, 3 and 4:
+K-EXT at k = 33-128 from one window to 70,001 codes with an all-G
+stretch, all INVALID and byte-offset views, K-RUN in all five forms at N =
+1 to 9,001 around its tile, with sentinel tails, all sentinel, a run
+across tiles and a view of a wider buffer, K-GENO on views, K-ASM with 1,
+2 and 20 streams and empty slices, the merges and the resident count on
+the card against the CPU.
 They need an NVIDIA GPU and nvcc, and skip without one; run them on the card
 with
 
@@ -1107,3 +1114,190 @@ def test_run_rows_on_dirty_memory(dev, S, H):
         if H:
             assert got.data_ptr() == ptr  # the 0xFF block came back
         _eq(got, want)
+
+
+# -- multi-word forms (k > 32: [nw, N] word-major keys) ------------------------
+
+K_MW = [33, 63, 64, 65, 96, 97, 127, 128]
+
+
+@pytest.mark.parametrize("k", K_MW)
+def test_canonical_kmers_mw(dev, k):
+    """K-EXT's multi-word form at one window, around its 256-window block,
+    at an odd length with INVALID codes, an all-G stretch (canonical as
+    all-C, never the sentinel), all INVALID, and on views at byte offsets 1
+    to 3."""
+    rng = np.random.default_rng(k + 300)
+    before = kernels.launch_counts()["canonical_kmers_mw"]
+    for n in (k, k + 255, k + 256, 70_001):
+        codes = rng.integers(0, 4, n + 3).astype(np.uint8)
+        codes[rng.random(n + 3) < 0.01] = codec.INVALID
+        codes[: min(n, k + 40)] = 3
+        c = torch.from_numpy(codes).to(dev)
+        for off in (0, 1, 2, 3):
+            v = c[off : off + n]
+            got = codec.canonical_kmers(v, k)
+            _eq(got, codec.canonical_kmers_mw_plain(v, k))
+        assert not (got[:, :30] == codec.SENTINEL).all(0).any()
+    bad = torch.full((k + 70,), int(codec.INVALID), dtype=torch.uint8, device=dev)
+    assert (codec.canonical_kmers(bad, k) == codec.SENTINEL).all()
+    assert codec.canonical_kmers(bad[: k - 1], k).shape == ((k + 31) // 32, 0)
+    assert kernels.launch_counts()["canonical_kmers_mw"] == before + 17
+
+
+def _mw_sorted(rng, nw, n, n_pool, tail=0):
+    """[nw, n] sorted keys from a pool whose first rows share their leading
+    word, with a sentinel tail of `tail` rows."""
+    pool = rng.integers(-(2**62), 2**62, (max(n_pool, 1), nw))
+    pool[: n_pool // 2, 0] = pool[0, 0]
+    rows = pool[rng.integers(0, len(pool), n)]
+    rows[n - tail :] = codec.SENTINEL
+    keys = torch.from_numpy(np.ascontiguousarray(rows.T)).to("cuda")
+    return codec.sort_rows(keys)[0]
+
+
+def _check_mw_runs(keys, *args, **kw):
+    got = codec.run_encode(keys, *args, **kw)
+    want = codec.run_encode_plain(keys, *args, **kw)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            _eq(g, w)
+    return got
+
+
+@pytest.mark.parametrize("nw", [2, 3, 4])
+def test_run_encode_mw_forms(dev, nw):
+    """K-RUN's multi-word form, every form with and without starts: N = 1,
+    around its 1024-row tile, odd, with a sentinel tail, a 3,000-row run
+    across tiles, all sentinel; keys as a [:, 1:] view of a wider buffer
+    (row stride past N, 8 bytes off 16)."""
+    tile = kernels.lib().kmd_run_encode_mw_tile_rows()
+    rng = np.random.default_rng(nw + 310)
+    before = kernels.launch_counts()["run_bounds_mw"]
+    calls = 0
+    for n, n_pool, tail in ((1, 1, 0), (tile - 1, 40, 3), (tile, 2000, 0),
+                            (tile + 1, 5, 1), (5 * tile + 7, 3000, 700),
+                            (9001, 2, 0), (77, 5, 77)):
+        keys = _mw_sorted(rng, nw, n, n_pool, tail)
+        wide = torch.empty((nw, n + 1), dtype=torch.int64, device=dev)
+        wide[:, 1:] = keys
+        perm = torch.from_numpy(rng.permutation(n)).to(dev)
+        raw = torch.from_numpy(rng.integers(-(2**31), 2**31, n).astype(np.int32)).to(dev)
+        p16 = torch.from_numpy(rng.integers(-(2**15), 2**15, n).astype(np.int16)).to(dev)
+        p32 = torch.from_numpy((rng.integers(0, 2**20, n) | (rng.random(n) < 0.5) << 31)
+                               .astype(np.uint32).view(np.int32)).to(dev)
+        sample = torch.from_numpy(rng.integers(0, 7, n).astype(np.int16)).to(dev)
+        for k in (keys, wide[:, 1:]):
+            for starts in (True, False):
+                _check_mw_runs(k, starts=starts)
+                _check_mw_runs(k, lengths=True, starts=starts)
+                _check_mw_runs(k, perm, p16, starts=starts)
+                _check_mw_runs(k, perm, p32, starts=starts)
+                _check_mw_runs(k, perm, raw, starts=starts, sample=sample,
+                               nb_controls=3)
+                calls += 5
+    empty = codec.run_encode(torch.empty((nw, 0), dtype=torch.int64, device=dev),
+                             lengths=True)
+    assert empty[1].shape == (nw, 0) and int(empty[2]) == 0
+    assert kernels.launch_counts()["run_bounds_mw"] == before + calls
+
+
+@pytest.mark.parametrize("nw", [2, 3, 4])
+def test_geno_sample_mw(dev, nw):
+    rng = np.random.default_rng(nw + 320)
+    for U in (0, 1, 255, 4097):
+        keys = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, (nw, U + 5),
+                                             dtype=np.int64)).to(dev)
+        for rate in (0.001, 0.05, 1.0):
+            thr = merge_dev.pca_threshold_u32(rate)
+            for k in (keys[:, :U].contiguous(), keys[:, 5:]):
+                _eq(merge_dev.geno_sample(k, thr, 3),
+                    merge_dev.geno_sample_plain(k, thr, 3))
+
+
+@pytest.mark.parametrize("nw", [2, 3, 4])
+@pytest.mark.parametrize("S", [1, 2, 20])
+def test_assemble_chunk_mw(dev, nw, S):
+    """K-ASM's multi-word form: both packings and sample ids, empty slices,
+    a chunk from one stream, around its 1024-row tile."""
+    rng = np.random.default_rng(nw * 100 + S)
+    keys, counts = [], []
+    for s in range(S):
+        U = int(rng.integers(0, 3000)) if s else 2100
+        rows = np.sort(rng.integers(-(2**62), 2**62, (U, nw)), axis=0)
+        keys.append(torch.from_numpy(np.ascontiguousarray(rows.T)).to(dev))
+        counts.append(torch.from_numpy(rng.integers(1, 2**32, U, dtype=np.int64)
+                                       .astype(np.uint32).view(np.int32)).to(dev))
+    before = kernels.launch_counts()["assemble_chunk_mw"]
+    launches = 0
+    for lens_of in (lambda U: U, lambda U: min(U, 1023), lambda U: U // 2 * (U % 3 != 0)):
+        lens = np.array([lens_of(k.shape[1]) for k in keys])
+        starts = np.array([k.shape[1] - n for k, n in zip(keys, lens)])
+        for pack16, ids in ((True, False), (False, False), (False, True)):
+            c = [x & 0x7FFF for x in counts] if pack16 else counts
+            table = fused.ChunkTable(keys, c, starts, lens, S // 2)
+            got = table.assemble(0, pack16, ids)
+            want = fused.assemble_chunk_plain(keys, c, starts, lens, S // 2, pack16, ids)
+            for g, w in zip(got, want):
+                _eq(g, w)
+            launches += int(lens.sum() > 0)
+    assert kernels.launch_counts()["assemble_chunk_mw"] == before + launches
+
+
+@pytest.mark.parametrize("nw", [2, 4])
+def test_merge_lrt_mw_cuda_matches_cpu(dev, nw):
+    """The packed and the full merge on [nw, N] keys: survivors, sums, count
+    and geno rows equal to the CPU run's."""
+    rng = np.random.default_rng(nw + 330)
+    pool = np.unique(rng.integers(0, 2**64 - 1, (20_000, nw), dtype=np.uint64), axis=0)
+    pool[:2000, 0] = pool[0, 0]
+    pool = np.unique(pool, axis=0)
+    kmers, counts = [], []
+    for s in range(6):
+        take = np.sort(rng.choice(len(pool), 8000, replace=False))
+        kmers.append(pool[take])
+        c = rng.integers(1, 300, 8000, dtype=np.uint32)
+        c[:800] *= 1 + 30 * (s < 3)
+        counts.append(c)
+    keys, count, _ = build_triples_packed(kmers, counts, 3)
+    gpu = merge_lrt(torch.from_numpy(keys).to(dev), torch.from_numpy(count).to(dev),
+                    0.45, 0.55, 3.0)
+    cpu = merge_lrt(torch.from_numpy(keys), torch.from_numpy(count), 0.45, 0.55, 3.0)
+    assert gpu[0] == cpu[0] and gpu[1].shape[1] > 0
+    for g, c in zip(gpu[1:], cpu[1:]):
+        _eq(g, c)
+    keys, count, sample, _ = merge_dev.build_triples(kmers, counts)
+    thr = merge_dev.pca_threshold_u32(0.05)
+    args = (6, 3, 0.45, 0.55, 3.0, True, True, thr, 5)
+    gpu = merge_dev.merge_lrt_full(torch.from_numpy(keys).to(dev),
+                                   torch.from_numpy(count).to(dev),
+                                   torch.from_numpy(sample).to(dev), *args)
+    cpu = merge_dev.merge_lrt_full(torch.from_numpy(keys), torch.from_numpy(count),
+                                   torch.from_numpy(sample), *args)
+    assert gpu[0] == cpu[0] and gpu[4].shape[0] > 0
+    for g, c in zip(gpu[1:], cpu[1:]):
+        _eq(g, c)
+
+
+@pytest.mark.parametrize("k", [63, 128])
+def test_count_sample_resident_mw_cuda_matches_cpu(dev, k, monkeypatch):
+    """One chunk and several (dedup_sum on [nw, N] keys) with hard-min 2."""
+    from kmdiff_tpu_torch.pipeline import count as tcount
+
+    rng = np.random.default_rng(k + 340)
+    codes = [rng.integers(0, 4, 50_000).astype(np.uint8) for _ in range(2)]
+    motif = rng.integers(0, 4, 200).astype(np.uint8)
+    for s in range(0, 49_000, 700):
+        codes[0][s : s + 200] = motif
+    codes[1][::151] = codec.INVALID
+    for rows in (None, 1 << 14):
+        if rows:
+            monkeypatch.setattr(tcount, "SORT_ROWS", rows)
+        g = fused.count_sample_resident(codes, k, 2, dev)
+        c = fused.count_sample_resident(codes, k, 2, torch.device("cpu"))
+        assert (g.U, g.max_count, g.n_distinct_pre, g.total_mass) == (
+            c.U, c.max_count, c.n_distinct_pre, c.total_mass)
+        _eq(g.keys, c.keys)
+        _eq(g.counts, c.counts)
+        assert np.array_equal(g.hist_uvec, c.hist_uvec) and g.U > 0

@@ -139,7 +139,7 @@ def test_unported_diff_flags_raise(cohort, extra, tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--profile", "trace"], ["--distributed", "h:1"], ["--model", "x.py"],
-    ["--devices", "2"], ["-k", "33"],
+    ["--devices", "2"],
 ])
 def test_unported_run_flags_raise(cohort, extra, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -150,9 +150,14 @@ def test_unported_run_flags_raise(cohort, extra, tmp_path):
 
 
 def test_unported_commands_and_k_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="k > 32"):
-        torch_main(["count", "--file", "f", "--run-dir", str(tmp_path),
-                    "--kmer-size", "33"], device="cpu")
+    # k from 8 to 128 runs; outside that range the CLI rejects the value as
+    # the JAX CLI does
+    for k in ("7", "129"):
+        args = ["count", "--file", "f", "--run-dir", str(tmp_path), "--kmer-size", k]
+        for main in (jax_main, lambda a: torch_main(a, device="cpu")):
+            with pytest.raises(SystemExit) as e:
+                main(args)
+            assert e.value.code == 2
     for cmd in (["infos"], ["warmup", "-1", "1", "-2", "1"]):
         with pytest.raises(NotImplementedError):
             torch_main(cmd, device="cpu")

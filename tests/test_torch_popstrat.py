@@ -413,3 +413,31 @@ def test_matrix_path_rows_geno_and_save_sk_match_jax(tmp_path):
     np.testing.assert_array_equal(got.counts_ratio, want.counts_ratio)
     np.testing.assert_array_equal(g_geno, w_geno)
     assert g_mat == w_mat
+
+
+def test_knife_edges_compare_and_describe(stratified_cohort, tmp_path):
+    """tools.knife_edges, which chip_smoke.py's popstrat checks use: two
+    CPU runs agree, every refit gives its FASTA, and describe reports a few
+    planted k-mers, its refits equal to compare's."""
+    from kmdiff_tpu_torch.tools import knife_edges
+
+    _root, run_dir, nc, nk = stratified_cohort
+    flags = ["diff", "--km-run-dir", str(run_dir), "-1", str(nc), "-2", str(nk),
+             "-s", str(THRESHOLD), "--cutoff", "1", "-c", "disabled",
+             "--pop-correction", "--kmer-pca", "0.05", "--n-pc", "2", "--keep-tmp"]
+    outs = [str(tmp_path / side) for side in ("a", "b")]
+    for out in outs:
+        torch_main([*flags, "--output-dir", out], device="cpu")
+    opt = diff_options(parse_args(flags))
+    cmp = knife_edges.compare(CPU, opt, str(run_dir), *outs, THRESHOLD, nc + nk)
+    assert cmp["only"] == set() and len(cmp["both"]) >= 10 and cmp["rel"] == 0.0
+    assert cmp["sig"]["gpu"] == set(cmp["got"]) == cmp["sig"]["cpu"]
+    assert len(cmp["sig"]["f64"] ^ cmp["sig"]["gpu"]) <= 2
+    assert knife_edges.describe(CPU, opt, str(run_dir), *outs, cmp,
+                                THRESHOLD) == "no k-mer in one FASTA only"
+    cmp["only"] = set(sorted(cmp["both"])[:5])
+    why = knife_edges.describe(CPU, opt, str(run_dir), *outs, cmp, THRESHOLD)
+    assert why.startswith("5 k-mers in one FASTA only are ")
+    for side in ("K-IRLS", "twin (CPU)", "twin (card, f32)"):
+        assert f"{side} significant on " in why
+        assert "f64 sides with it on " in why
