@@ -7,8 +7,8 @@ Run from the root of a checkout, with no arguments:
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds the port's eleven CUDA kernels from csrc/ with nvcc
-   (one nvcc a source, all at once), printing K-EXT's registers, spills and
-   shared memory (-Xptxas -v); builds and loads the port's native host-IO
+   (one nvcc a source, all at once), printing K-EXT's and K-GRAM's
+   registers, spills and shared memory (-Xptxas -v); builds and loads the port's native host-IO
    library (native/), which must come from build/kmdiff_tpu_torch/native/.
 2. Holds each kernel against its plain PyTorch twin on the card at the
    main path's shapes and prints both median times (CUDA events), each
@@ -47,7 +47,9 @@ Run from the root of a checkout, with no arguments:
    launches) and its one device operation a call (torch.profiler), K-GENO's
    device time (20 queued launches), K-GRAM on [2^20, 20] and [2^18, 200]
    0/1 blocks beside torch._int_mm (the same blocks as int8, S padded to a
-   multiple of 8, held equal to K-GRAM's Gram), K-IRLS on 2^14 conditioned alt
+   multiple of 8, held equal to K-GRAM's Gram), each with its device time
+   (20 queued launches) and its device operations a call (torch.profiler),
+   K-IRLS on 2^14 conditioned alt
    designs at n = 20, F = 5 and n = 200, F = 12 (one singular item, one
    separable) and on their first 1,024 (popstrat's launch size), alone
    bit-identical to the same fits among 2^14, each with its device time
@@ -97,7 +99,11 @@ Run from the root of a checkout, with no arguments:
    the f64 one than its twin's;
    (b) `run` with the same flags on CUDA,
    served by the fused path with K-ASM: FASTA and pcs.evec byte-identical
-   to (a)'s CUDA output, the .geno the same multiset of rows.
+   to (a)'s CUDA output, the .geno the same multiset of rows. Then K-GRAM
+   again on the blocks (a)'s CUDA PCA gave it, one a row-sum group of the
+   geno matrix: their shapes logged, each held against the twin, the
+   sequence timed as in phase 2 (whole calls, device time over 20 queued
+   sequences, device operations a call).
 6. The wide sums, on a cohort whose k-mer mass passes 2^31 (wide_cohort:
    a run directory in count's layout made on the host from numpy, seed
    WIDE_SEED: 10 controls + 10 cases, 4 partitions, ~2^22 k-mers a sample
@@ -159,7 +165,10 @@ run_bounds_mw, assemble_chunk_mw, geno_sample_mw: source the one-word
 form's, launches on phase 7's k = 63 paths, device_ms; canonical_kmers_mw
 carries k = 128 as k128_*, assemble_chunk_mw the full merge's raw counts
 with sample ids as full_*; run_bounds_mw is the count form, beside
-torch.unique_consecutive(dim=0)); int_gram's library_ms is torch._int_mm;
+torch.unique_consecutive(dim=0)); int_gram's row is [2^20, 20] with
+device_ms and device_ops, carries [2^18, 200] as s200_* and phase 5's
+row-sum groups as groups_* (ms, plain_ms, bound_ms, bound_by, device_ms,
+device_ops a call, shapes); its library_ms is torch._int_mm;
 the last line of standard output is the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -978,8 +987,26 @@ def compare_rows(dev, rng):
     return out
 
 
+def gram_bound(shapes):
+    """K-GRAM's bytes and operations for blocks of these [B, S] shapes:
+    each 0/1 block in, its int64 Gram out; the bit packing (one operation a
+    byte), then for each sample pair on or above the diagonal (the kernel
+    mirrors the rest) and 32-row word an AND and an add on the int32 pipe
+    and a popcount on its own."""
+    nbytes, int32, popc = 0, 0, 0
+    for B, S in shapes:
+        pair_words = S * (S + 1) // 2 * (-(-B // 32))
+        nbytes += B * S + 8 * S * S
+        int32 += B * S + 2 * pair_words
+        popc += pair_words
+    return nbytes, {"int32": int32, "popc": popc}
+
+
 def compare_gram(dev, rng):
-    """K-GRAM on the geno blocks of a 20- and a 200-sample cohort."""
+    """K-GRAM on the geno blocks of a 20- and a 200-sample cohort: the
+    whole call, its device time (20 launches behind a sleep kernel) and its
+    device operations a call (torch.profiler). Returns the [2^20, 20] row
+    with the [2^18, 200] one in s200_*."""
     import numpy as np
     import torch
 
@@ -990,21 +1017,62 @@ def compare_gram(dev, rng):
         X = torch.from_numpy((rng.random((B, S)) < 0.4).astype(np.uint8)).to(dev)
         check_equal(f"int_gram [{B}, {S}]", pca.int_gram(X), pca.int_gram_plain(X))
         ms = median_ms(lambda: pca.int_gram(X))
+        dev_ms = events_ms(lambda: pca.int_gram(X))
+        n_ops = device_work(lambda: pca.int_gram(X))[1]
         plain = median_ms(lambda: pca.int_gram_plain(X))
-        # the 0/1 block in, the int64 Gram out; the bit packing (one
-        # operation a byte), then for each sample pair on or above the
-        # diagonal (the kernel mirrors the rest) and 32-row word an AND and
-        # an add on the int32 pipe and a popcount on its own
-        pair_words = S * (S + 1) // 2 * (B // 32)
         lib = int_mm_ms(X, pca.int_gram(X))
-        res[S] = row(ms, plain, 0.0, B * S + 8 * S * S,
-                     {"int32": B * S + 2 * pair_words, "popc": pair_words},
-                     library=lib)
-        print(f"[K-GRAM] int_gram [{B}, {S}]: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms; {share(res[S])}; library torch._int_mm (int8 "
-              f"0/1 on the tensor cores, S padded to {-(-S // 8) * 8}; exact, "
-              f"checked) {lib:.4f} ms")
-    return res[20]
+        nbytes, ops = gram_bound([(B, S)])
+        res[S] = row(ms, plain, 0.0, nbytes, ops, library=lib, device_ms=dev_ms,
+                     device_ops=n_ops)
+        print(f"[K-GRAM] int_gram [{B}, {S}]: kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f} ms over 20 queued launches, {n_ops} device "
+              f"operation(s) a call), plain {plain:.4f} ms; {share(res[S])}, "
+              f"{res[S]['bound_ms'] / dev_ms:.1%} of it over the device time; "
+              f"library torch._int_mm (int8 0/1 on the tensor cores, S padded to "
+              f"{-(-S // 8) * 8}; exact, checked) {lib:.4f} ms")
+    out = res[20]
+    out.update({f"s200_{key}": res[200][key] for key in
+                ("ms", "plain_ms", "device_ms", "device_ops", "bound_ms", "bound_by",
+                 "library_ms")})
+    return out
+
+
+def compare_gram_groups(groups) -> dict:
+    """K-GRAM on the row-sum group blocks of phase 5's geno matrix, as the
+    CUDA popstrat diff gave them to it: each held against the plain twin,
+    then the whole sequence timed (a call each, as eigenstrat_pca makes
+    them): whole calls, device time (20 sequences behind a sleep kernel)
+    and device operations a call (torch.profiler)."""
+    from kmdiff_tpu_torch.ops import pca
+
+    shapes = [tuple(X.shape) for X in groups]
+    for X in groups:
+        check_equal(f"int_gram {list(X.shape)}", pca.int_gram(X), pca.int_gram_plain(X))
+
+    def calls():
+        for X in groups:
+            pca.int_gram(X)
+
+    def plain_calls():
+        for X in groups:
+            pca.int_gram_plain(X)
+
+    ms = median_ms(calls)
+    dev_ms = events_ms(calls)
+    n_ops = device_work(calls)[1] / len(groups)
+    plain = median_ms(plain_calls)
+    nbytes, ops = gram_bound(shapes)
+    r = row(ms, plain, 0.0, nbytes, ops)
+    print(f"[K-GRAM] phase 5's {len(groups)} row-sum groups, [B, S]: {shapes}")
+    print(f"[K-GRAM] int_gram over those groups, a call each: kernel {ms:.4f} ms "
+          f"(device {dev_ms:.4f} ms over 20 queued sequences, {n_ops:.2f} device "
+          f"operations a call), plain {plain:.4f} ms; {share(r)}, "
+          f"{r['bound_ms'] / dev_ms:.1%} of it over the device time; library: "
+          f"none (one call a group)")
+    out = {f"groups_{key}": r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    out.update(groups_device_ms=dev_ms, groups_device_ops=n_ops,
+               groups_shapes=[list(sh) for sh in shapes])
+    return out
 
 
 def int_mm_ms(X, gram) -> float:
@@ -1617,15 +1685,17 @@ def check_popstrat_fasta(dev, opt, run_dir, gpu, cpu, alpha) -> str:
             f"of alpha in one only; {why}")
 
 
-def run_popstrat(dev, phase3) -> dict:
+def run_popstrat(dev, phase3) -> tuple:
     """Phase 5: diff (CUDA, then CPU) and run (CUDA) with popstrat and
-    --save-sk; returns the launch counts of the CUDA diff and of the run."""
+    --save-sk; returns the launch counts of the CUDA diff and of the run,
+    and the blocks K-GRAM took in the CUDA diff (one a row-sum group)."""
     import torch
 
     from kmdiff_tpu_torch import kernels
     from kmdiff_tpu_torch.cli import count_options, diff_options, parse_args
     from kmdiff_tpu_torch.cmd.diff import main_diff
     from kmdiff_tpu_torch.cmd.run import main_run
+    from kmdiff_tpu_torch.ops import pca
 
     loose = ["-1", str(N_CONTROLS), "-2", str(N_CASES), "--threads", "4", "-s",
              "0.001", "--cutoff", "1", "-c", "disabled"]
@@ -1638,6 +1708,15 @@ def run_popstrat(dev, phase3) -> dict:
     print(f"[popstrat base] loose diff without popstrat: "
           f"{time.perf_counter() - t0:.3f} s wall (CUDA)")
     outs, launches = {}, {}
+    # K-GRAM's inputs on CUDA, one block a row-sum group (compare_gram_groups)
+    groups = []
+    real_gram = pca.int_gram
+
+    def gram_spy(X):
+        if X.is_cuda:
+            groups.append(X.clone())
+        return real_gram(X)
+
     for label, where in (("gpu", dev), ("cpu", torch.device("cpu"))):
         out = os.path.join(WORK, f"pop_{label}")
         args = parse_args(["diff", "--km-run-dir", phase3["run"], *flags,
@@ -1645,7 +1724,11 @@ def run_popstrat(dev, phase3) -> dict:
         timings = {}
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        res = main_diff(diff_options(args), where, timings)
+        pca.int_gram = gram_spy
+        try:
+            res = main_diff(diff_options(args), where, timings)
+        finally:
+            pca.int_gram = real_gram
         wall = time.perf_counter() - t0
         launches[label] = kernels.launch_counts()
         print(f"[popstrat diff {label}] {wall:.3f} s wall (PCA "
@@ -1706,7 +1789,10 @@ def run_popstrat(dev, phase3) -> dict:
           f"{res['control']} control / {res['case']} case; FASTA and pcs.evec "
           f"byte-identical to diff's, {len(geno[0])} .geno rows, the same "
           f"multiset; launches {run_launches}")
-    return launches["gpu"], run_launches
+    if len(groups) != launches["gpu"]["int_gram"]:
+        raise AssertionError(f"popstrat diff: {len(groups)} K-GRAM blocks recorded, "
+                             f"{launches['gpu']['int_gram']} launches")
+    return launches["gpu"], run_launches, groups
 
 
 #: phase 6's wide cohort: a shared pool of ~6 M k-mers, ~2^22 of them a
@@ -2241,6 +2327,11 @@ def main() -> int:
              if "registers" in line or "spill" in line]
     print("[K-EXT] nvcc -Xptxas -v: " + ("; ".join(ptxas) or
                                          "(library loaded from an earlier build)"))
+    ptxas = [line.strip() for line in
+             kernels.build_log.get("int_gram", "").splitlines()
+             if "registers" in line or "spill" in line]
+    print("[K-GRAM] nvcc -Xptxas -v: " + ("; ".join(ptxas) or
+                                          "(library loaded from an earlier build)"))
     load_native()
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -2249,7 +2340,9 @@ def main() -> int:
         timings = compare_kernels(dev)
         phase3 = run_main_path(dev)
         fused_launches = run_fused(dev, phase3)
-        pop_launches, pop_run_launches = run_popstrat(dev, phase3)
+        pop_launches, pop_run_launches, gram_groups = run_popstrat(dev, phase3)
+        timings["int_gram"].update(compare_gram_groups(gram_groups))
+        del gram_groups
         wide_launches = run_wide(dev, phase3)
         mw_launches = run_multiword(dev, phase3)
     finally:

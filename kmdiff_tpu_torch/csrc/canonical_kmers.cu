@@ -264,83 +264,386 @@ KMD_API int kmd_canonical_kmers(const uint8_t* codes, long long N, int k,
 // reverse-complement k-mer, whose base p is the complement of the window's
 // base k-1-p. A window that holds an INVALID code is the sentinel row: every
 // word INT64_MAX (no canonical k-mer equals it: it is an all-G k-mer, whose
-// reverse complement all-C is smaller; it sorts last).
+// reverse complement all-C is smaller; it sorts last). Codes are taken at
+// any byte offset.
 //
-// A simple form: a block of 256 threads owns 256 consecutive windows, copies
-// their 256 + k - 1 codes into shared memory, and each thread builds its
-// window's forward and reverse-complement words in registers from there,
-// k shared-memory reads each, word by word; the words are stored row by row,
-// consecutive threads writing consecutive windows (coalesced). Templated on
-// nw, so that every word lives in a register.
+// Replaces extract_canonical_lanes (kmdiff_tpu/ops/codec.py:73) at 2-4
+// words. The one-word kernel's design, carried over to nw words:
+//   * rolling windows: a thread owns kRuns consecutive windows of a tile and
+//     keeps its window in registers as nw forward words and nw
+//     reverse-complement words in the output layout (the last word
+//     right-aligned, r = k - 32(nw-1) bases). A code b rolls in as
+//       forward:  word w < nw-1 shifts left by 2 and takes the next word's
+//                 first base (word nw-2 takes the last word's, at bit 2r-2);
+//                 the last word shifts left, takes b and keeps its 2r bits;
+//       reverse:  word 0 shifts right by 2 and takes (b ^ 2) << 62, word
+//                 w > 0 takes word w-1's last base (the last word at bit
+//                 2r-2),
+//     so a window costs one roll, a lexicographic compare (one borrow
+//     chain of 32-bit subtractions, least significant word first), a select
+//     and the flip. Invalid codes: the position of the last INVALID code,
+//     as in the one-word kernel; a window is valid iff it lies before it.
+//   * the first window's k - 1 codes roll in four at a time, in a layout
+//     whose shifts are all constant: the last 32 nw codes as nw u64 words
+//     with the oldest code highest, and their reverse complement with the
+//     newest highest (four codes pack into a byte with one multiply each).
+//     One conversion then gives the output layout (two-word shifts by
+//     2(32 nw - k)). At k = 128 that is 32 steps instead of 127 ahead of a
+//     thread's windows. Codes before the thread's first window that roll in
+//     with its first 16-byte chunk (and a misaligned tile's leading slots)
+//     fall out of the window before it is read, and an INVALID code among
+//     them lies before it, so neither needs a special case.
+//   * codes in through shared memory: a block owns a tile of kRuns x
+//     kMwThreads windows and its tile + k - 1 codes. A persistent grid walks
+//     the tiles; each block issues the next tile's 16-byte cp.async copies
+//     before it computes this one. A codes pointer at any byte offset is
+//     taken: the copies are the aligned 16-byte chunks that meet the tile's
+//     span, and only the chunks that the stream's own ends cut are copied
+//     byte by byte, so no load leaves [codes, codes + N) and no thread waits
+//     on a plain load between tiles. A thread reads its codes as 16-byte
+//     shared loads (kRuns is a multiple of 16, so all threads share one
+//     alignment and every branch on it is uniform).
+//   * keys out coalesced: a thread stages its windows' keys in shared
+//     memory, a row per word (stride kRuns + 1 keys, so that 8-byte stores
+//     of a half-warp fall on distinct banks); then the block writes each
+//     word row of the tile as one contiguous run of 16-byte streaming
+//     stores. The tile scales with nw so that the staged keys (nw x 8 bytes
+//     a window) stay near 68 KB: kRuns = 32 at nw = 2 (4,096 windows), 16
+//     at nw = 3 and 4 (2,048), in dynamic shared memory, three or four
+//     blocks an SM. (Writing 8 windows a thread at a time, 64-byte pieces
+//     256 bytes apart, cost more than the computing on the card.)
+//   * templated on nw, so every word stays in a register.
+//
+// Bound on the H100: device memory. A window reads 1 code and writes 8 nw
+// bytes: at 2^24 codes 285 MB at k = 63 (0.085 ms at 3.35 TB/s) and 554 MB
+// at k = 128 (0.165 ms). The integer work is ~15 nw 32-bit instructions a
+// window and ~7 a code of the warm-up, below the bytes at every k;
+// ptxas's register and spill lines are printed by chip_smoke.py and
+// tools/kext_tiles.py.
 namespace {
 
-constexpr int kMwThreads = 256;
+constexpr int kMwThreads = 128;
+// windows a thread at nw = 2, 3, 4 (multiples of 16)
+constexpr int kMwRuns2 = 32;
+constexpr int kMwRuns3 = 16;
+constexpr int kMwRuns4 = 16;
 constexpr int kMwMaxK = 128;
+constexpr unsigned long long kMwSign = 1ull << 63;
 
 template <int NW>
-__global__ void __launch_bounds__(kMwThreads)
-canonical_kmers_mw_kernel(const uint8_t* __restrict__ codes, long long N, int k,
-                          int64_t* __restrict__ keys) {
-  __shared__ uint8_t sm[kMwThreads + kMwMaxK - 1];
-  const long long W = N - k + 1;
-  const long long lo = static_cast<long long>(blockIdx.x) * kMwThreads;
-  const long long hi = min(N, lo + kMwThreads + k - 1);
-  for (long long i = lo + threadIdx.x; i < hi; i += kMwThreads) sm[i - lo] = codes[i];
-  __syncthreads();
-  const long long win = lo + threadIdx.x;
-  if (win >= W) return;
-  const uint8_t* c = sm + threadIdx.x;
-  uint64_t fwd[NW];
-  uint64_t rc[NW];
-  unsigned bad = 0;
-#pragma unroll
-  for (int w = 0; w < NW; ++w) {
-    const int p1 = min(k, 32 * w + 32);
-    uint64_t f = 0;
-    uint64_t r = 0;
-    for (int p = 32 * w; p < p1; ++p) {
-      const unsigned b = c[p];
-      bad |= b;
-      f = (f << 2) | (b & 3u);
-      r = (r << 2) | ((c[k - 1 - p] & 3u) ^ 2u);
+struct MwShape {
+  static constexpr int kRuns = NW == 2 ? kMwRuns2 : NW == 3 ? kMwRuns3 : kMwRuns4;
+  static constexpr int kTile = kMwThreads * kRuns;      // windows a tile
+  static constexpr int kStride = kRuns + 1;              // staged keys of a thread, a row
+  static constexpr int kRowKeys = kMwThreads * kStride;  // staged keys of a row
+  // a tile's codes, the halo, and up to 15 + 15 bytes of the chunks that
+  // hold the span's ends
+  static constexpr int kCodeBuf = (kTile + kMwMaxK - 1 + 30 + 15) / 16 * 16;
+  static constexpr int kSmem = 2 * kCodeBuf + NW * kRowKeys * 8;
+  static_assert(kRuns % 16 == 0, "every thread's codes share one 16-byte alignment");
+};
+
+// Issue the copies of codes [c0, c1) into buf, code i at slot
+// ((codes + c0) & 15) + i - c0: each aligned 16-byte chunk that meets the
+// span and lies in [codes, codes + N) by cp.async, the span's bytes of a
+// chunk that the stream's ends cut by plain loads.
+__device__ void load_span_mw(uint8_t* buf, const uint8_t* __restrict__ codes,
+                             long long N, long long c0, long long c1) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(codes);
+  const uintptr_t lo = (base + c0) & ~static_cast<uintptr_t>(15);
+  const int n_chunks = static_cast<int>((base + c1 - lo + 15) >> 4);
+  for (int j = threadIdx.x; j < n_chunks; j += kMwThreads) {
+    const uintptr_t at = lo + 16 * static_cast<uintptr_t>(j);
+    if (at >= base && at + 16 <= base + N) {
+      cp_async16(buf + 16 * j, reinterpret_cast<const void*>(at));
+    } else {
+      for (int b = 0; b < 16; ++b) {
+        const uintptr_t p = at + b;
+        if (p >= base + c0 && p < base + c1)
+          buf[16 * j + b] = *reinterpret_cast<const uint8_t*>(p);
+      }
     }
-    fwd[w] = f;
-    rc[w] = r;
-  }
-  // lexicographic min: the first word that differs decides
-  bool take_rc = false;
-  bool undecided = true;
-#pragma unroll
-  for (int w = 0; w < NW; ++w) {
-    take_rc = take_rc || (undecided && rc[w] < fwd[w]);
-    undecided = undecided && rc[w] == fwd[w];
-  }
-  const bool invalid = (bad & 0x80u) != 0;  // INVALID is 0xFF, codes are 0..3
-#pragma unroll
-  for (int w = 0; w < NW; ++w) {
-    const uint64_t v = take_rc ? rc[w] : fwd[w];
-    keys[w * W + win] = invalid ? kmd::kSentinel : static_cast<int64_t>(v ^ (1ull << 63));
   }
 }
 
+__device__ __forceinline__ uint32_t lo32(uint64_t x) { return static_cast<uint32_t>(x); }
+__device__ __forceinline__ uint32_t hi32(uint64_t x) { return static_cast<uint32_t>(x >> 32); }
+
+// all ones where a < b lexicographically (word 0 most significant): the
+// borrow out of a - b, least significant word first
+template <int NW>
+__device__ __forceinline__ uint32_t words_less(const uint64_t* a, const uint64_t* b);
+
+template <>
+__device__ __forceinline__ uint32_t words_less<2>(const uint64_t* a, const uint64_t* b) {
+  uint32_t m;
+  asm("{\n\t.reg .u32 t;\n\t"
+      "sub.cc.u32 t, %1, %2;\n\tsubc.cc.u32 t, %3, %4;\n\t"
+      "subc.cc.u32 t, %5, %6;\n\tsubc.cc.u32 t, %7, %8;\n\t"
+      "subc.u32 %0, %9, %9;\n\t}"
+      : "=r"(m)
+      : "r"(lo32(a[1])), "r"(lo32(b[1])), "r"(hi32(a[1])), "r"(hi32(b[1])),
+        "r"(lo32(a[0])), "r"(lo32(b[0])), "r"(hi32(a[0])), "r"(hi32(b[0])), "r"(0u));
+  return m;
+}
+
+template <>
+__device__ __forceinline__ uint32_t words_less<3>(const uint64_t* a, const uint64_t* b) {
+  uint32_t m;
+  asm("{\n\t.reg .u32 t;\n\t"
+      "sub.cc.u32 t, %1, %2;\n\tsubc.cc.u32 t, %3, %4;\n\t"
+      "subc.cc.u32 t, %5, %6;\n\tsubc.cc.u32 t, %7, %8;\n\t"
+      "subc.cc.u32 t, %9, %10;\n\tsubc.cc.u32 t, %11, %12;\n\t"
+      "subc.u32 %0, %13, %13;\n\t}"
+      : "=r"(m)
+      : "r"(lo32(a[2])), "r"(lo32(b[2])), "r"(hi32(a[2])), "r"(hi32(b[2])),
+        "r"(lo32(a[1])), "r"(lo32(b[1])), "r"(hi32(a[1])), "r"(hi32(b[1])),
+        "r"(lo32(a[0])), "r"(lo32(b[0])), "r"(hi32(a[0])), "r"(hi32(b[0])), "r"(0u));
+  return m;
+}
+
+template <>
+__device__ __forceinline__ uint32_t words_less<4>(const uint64_t* a, const uint64_t* b) {
+  uint32_t m;
+  asm("{\n\t.reg .u32 t;\n\t"
+      "sub.cc.u32 t, %1, %2;\n\tsubc.cc.u32 t, %3, %4;\n\t"
+      "subc.cc.u32 t, %5, %6;\n\tsubc.cc.u32 t, %7, %8;\n\t"
+      "subc.cc.u32 t, %9, %10;\n\tsubc.cc.u32 t, %11, %12;\n\t"
+      "subc.cc.u32 t, %13, %14;\n\tsubc.cc.u32 t, %15, %16;\n\t"
+      "subc.u32 %0, %17, %17;\n\t}"
+      : "=r"(m)
+      : "r"(lo32(a[3])), "r"(lo32(b[3])), "r"(hi32(a[3])), "r"(hi32(b[3])),
+        "r"(lo32(a[2])), "r"(lo32(b[2])), "r"(hi32(a[2])), "r"(hi32(b[2])),
+        "r"(lo32(a[1])), "r"(lo32(b[1])), "r"(hi32(a[1])), "r"(hi32(b[1])),
+        "r"(lo32(a[0])), "r"(lo32(b[0])), "r"(hi32(a[0])), "r"(hi32(b[0])), "r"(0u));
+  return m;
+}
+
+// The warm-up layout: the last 32 NW codes, oldest highest (f), and their
+// reverse complement, newest highest (r).
+template <int NW>
+struct MwShift {
+  uint64_t f[NW];
+  uint64_t r[NW];
+  int last_bad = -kMwMaxK - 1;
+
+  __device__ __forceinline__ MwShift() {
+#pragma unroll
+    for (int w = 0; w < NW; ++w) f[w] = r[w] = 0;
+  }
+
+  // four codes, the bytes of x in memory order, the first at slot s
+  __device__ __forceinline__ void step4(uint32_t x, int s) {
+    const uint32_t bad = x & 0x80808080u;  // bit 7: INVALID (0xFF) alone has it
+    if (bad) last_bad = s + 3 - (__clz(bad) >> 3);
+    const uint32_t b = x & 0x03030303u;
+    const uint32_t fw = (b * 0x40100401u) >> 24;                  // first code highest
+    const uint32_t rv = ((b ^ 0x02020202u) * 0x01041040u) >> 24;  // last code highest
+#pragma unroll
+    for (int w = 0; w < NW - 1; ++w) f[w] = (f[w] << 8) | (f[w + 1] >> 56);
+    f[NW - 1] = (f[NW - 1] << 8) | fw;
+#pragma unroll
+    for (int w = NW - 1; w > 0; --w) r[w] = (r[w] >> 8) | (r[w - 1] << 56);
+    r[0] = (r[0] >> 8) | (static_cast<uint64_t>(rv) << 56);
+  }
+};
+
+// The output layout: the window's forward and reverse-complement words.
+template <int NW>
+struct MwWindow {
+  uint64_t fw[NW];
+  uint64_t rc[NW];
+  int last_bad;
+
+  // the last k codes of st: sh = 2 (32 NW - k)
+  __device__ __forceinline__ explicit MwWindow(const MwShift<NW>& st, int sh) {
+#pragma unroll
+    for (int w = 0; w < NW - 1; ++w) {
+      fw[w] = (st.f[w] << sh) | ((st.f[w + 1] >> 1) >> (63 - sh));
+      rc[w] = st.r[w];
+    }
+    fw[NW - 1] = st.f[NW - 1] & (~0ull >> sh);
+    rc[NW - 1] = st.r[NW - 1] >> sh;
+    last_bad = st.last_bad;
+  }
+
+  // one code, at slot s: cs = 2r - 2, the last word's first base; mask, its
+  // 2r bits
+  __device__ __forceinline__ void step(uint32_t c, int s, int cs, uint64_t mask) {
+    if (c == kInvalid) last_bad = s;
+    const uint64_t v = c & 3u;
+#pragma unroll
+    for (int w = 0; w < NW - 2; ++w) fw[w] = (fw[w] << 2) | (fw[w + 1] >> 62);
+    fw[NW - 2] = (fw[NW - 2] << 2) | ((fw[NW - 1] >> cs) & 3u);
+    fw[NW - 1] = ((fw[NW - 1] << 2) | v) & mask;
+    rc[NW - 1] = (rc[NW - 1] >> 2) | ((rc[NW - 2] & 3u) << cs);
+#pragma unroll
+    for (int w = NW - 2; w > 0; --w) rc[w] = (rc[w] >> 2) | (rc[w - 1] << 62);
+    rc[0] = (rc[0] >> 2) | ((v ^ 2u) << 62);
+  }
+
+  // the key row of the window whose last code is at slot s, word w at
+  // out[w * stride]
+  __device__ __forceinline__ void key(int s, int k, long long* out, int stride) const {
+    const uint32_t take = words_less<NW>(rc, fw);
+    const uint64_t t = (static_cast<uint64_t>(take) << 32) | take;
+    const uint64_t o = s - last_bad >= k ? 0ull : ~0ull;  // all ones: the sentinel
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const uint64_t v = (rc[w] & t) | (fw[w] & ~t);
+      out[w * stride] = static_cast<long long>(((v ^ kMwSign) | o) & ~(o & kMwSign));
+    }
+  }
+};
+
+__device__ __forceinline__ uint32_t byte_of(const uint4& v, int b) {
+  const uint32_t x = b < 4 ? v.x : b < 8 ? v.y : b < 12 ? v.z : v.w;
+  return (x >> (8 * (b & 3))) & 0xFFu;
+}
+
+template <int NW>
+__global__ void __launch_bounds__(kMwThreads, 3)
+canonical_kmers_mw_kernel(const uint8_t* __restrict__ codes, long long N, int k,
+                          long long* __restrict__ keys, long long n_tiles) {
+  using Sh = MwShape<NW>;
+  extern __shared__ __align__(16) uint8_t mw_smem[];
+  long long* key_buf = reinterpret_cast<long long*>(mw_smem + 2 * Sh::kCodeBuf);
+
+  const long long W = N - k + 1;
+  const int sh = 2 * (32 * NW - k);
+  const int cs = 62 - sh;
+  const uint64_t mask = ~0ull >> sh;
+  const uintptr_t base = reinterpret_cast<uintptr_t>(codes);
+
+  long long tile = blockIdx.x;
+  if (tile < n_tiles)
+    load_span_mw(mw_smem, codes, N, tile * Sh::kTile,
+                 min(N, tile * Sh::kTile + Sh::kTile + k - 1));
+  cp_async_commit();
+  for (int it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+    const long long next = tile + gridDim.x;
+    if (next < n_tiles)
+      load_span_mw(mw_smem + ((it + 1) & 1) * Sh::kCodeBuf, codes, N, next * Sh::kTile,
+                   min(N, next * Sh::kTile + Sh::kTile + k - 1));
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+
+    const long long lo = tile * Sh::kTile;
+    const int n_tile = static_cast<int>(min(static_cast<long long>(Sh::kTile), W - lo));
+    const uint8_t* buf = mw_smem + (it & 1) * Sh::kCodeBuf;
+    const int r0 = threadIdx.x * Sh::kRuns;  // first window of this thread, in the tile
+    const int n_win = min(Sh::kRuns, n_tile - r0);
+    const int first = static_cast<int>((base + lo) & 15) + r0;  // slot of its first code
+    const int end = first + k - 1;  // slot of its first window's last code
+    if (n_win > 0) {
+      // the first window's codes up to the last 4-aligned slot, four a step
+      const int q = end & ~3;
+      MwShift<NW> warm;
+      for (int c = first & ~15; c < q; c += 16) {
+        const uint4 v = *reinterpret_cast<const uint4*>(buf + c);
+        const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c + 4 * j < q) warm.step4(words[j], c + 4 * j);
+      }
+      MwWindow<NW> win(warm, sh);
+      // then a code a step; a window a step from slot end on
+      const int last = end + n_win;
+      long long* staged = key_buf + threadIdx.x * Sh::kStride;
+      for (int c = q & ~15; c < last; c += 16) {
+        const uint4 v = *reinterpret_cast<const uint4*>(buf + c);
+#pragma unroll
+        for (int b = 0; b < 16; ++b) {
+          const int s = c + b;
+          if (s >= q && s < last) {
+            win.step(byte_of(v, b), s, cs, mask);
+            if (s >= end) win.key(s, k, staged + (s - end), Sh::kRowKeys);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // each word row of the tile: a contiguous run of keys, 16-byte stores
+    // from the first 16-byte boundary on
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      long long* row = keys + w * W + lo;
+      const long long* src = key_buf + w * Sh::kRowKeys;
+      const int head = static_cast<int>((reinterpret_cast<uintptr_t>(row) >> 3) & 1);
+      const int n_pairs = (n_tile - head) / 2;
+      for (int v = threadIdx.x; v < n_pairs; v += kMwThreads) {
+        const int e = head + 2 * v;  // e and e + 1 may belong to two threads
+        longlong2 pair;
+        pair.x = src[(e / Sh::kRuns) * Sh::kStride + e % Sh::kRuns];
+        pair.y = src[((e + 1) / Sh::kRuns) * Sh::kStride + (e + 1) % Sh::kRuns];
+        __stcs(reinterpret_cast<longlong2*>(row + e), pair);
+      }
+      if (threadIdx.x == 0) {
+        if (head) __stcs(row, src[0]);
+        if ((n_tile - head) & 1) {
+          const int e = n_tile - 1;
+          __stcs(row + e, src[(e / Sh::kRuns) * Sh::kStride + e % Sh::kRuns]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int NW>
+int launch_mw(const uint8_t* codes, long long N, int k, int64_t* keys,
+              cudaStream_t stream) {
+  using Sh = MwShape<NW>;
+  static int grid_max = 0;  // blocks the card holds at once
+  if (grid_max == 0) {
+    int dev = 0, n_sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(canonical_kmers_mw_kernel<NW>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, canonical_kmers_mw_kernel<NW>, kMwThreads, Sh::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    grid_max = n_sms * per_sm;
+  }
+  const long long W = N - k + 1;
+  const long long n_tiles = (W + Sh::kTile - 1) / Sh::kTile;
+  const long long grid = std::min(n_tiles, static_cast<long long>(grid_max));
+  canonical_kmers_mw_kernel<NW><<<static_cast<unsigned>(grid), kMwThreads, Sh::kSmem,
+                                   stream>>>(codes, N, k,
+                                             reinterpret_cast<long long*>(keys), n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// windows a tile and a thread's run at nw words (the edge cases of the
+// tests)
+KMD_API long long kmd_canonical_kmers_mw_tile_windows(int nw) {
+  return nw == 2 ? MwShape<2>::kTile : nw == 3 ? MwShape<3>::kTile : MwShape<4>::kTile;
+}
+KMD_API long long kmd_canonical_kmers_mw_run_windows(int nw) {
+  return nw == 2 ? MwShape<2>::kRuns : nw == 3 ? MwShape<3>::kRuns : MwShape<4>::kRuns;
+}
 
 // codes [N] u8 at any byte offset, N >= k, 33 <= k <= 128; keys [nw, N-k+1]
 // int64, contiguous (row w at keys + w * (N-k+1)).
 KMD_API int kmd_canonical_kmers_mw(const uint8_t* codes, long long N, int k,
                                    int64_t* keys, cudaStream_t stream) {
   if (k <= 32 || k > kMwMaxK || N < k) return static_cast<int>(cudaErrorInvalidValue);
-  const long long W = N - k + 1;
-  const unsigned grid = kmd::grid_for(W, kMwThreads);
   switch ((k + 31) / 32) {
     case 2:
-      canonical_kmers_mw_kernel<2><<<grid, kMwThreads, 0, stream>>>(codes, N, k, keys);
-      break;
+      return launch_mw<2>(codes, N, k, keys, stream);
     case 3:
-      canonical_kmers_mw_kernel<3><<<grid, kMwThreads, 0, stream>>>(codes, N, k, keys);
-      break;
+      return launch_mw<3>(codes, N, k, keys, stream);
     default:
-      canonical_kmers_mw_kernel<4><<<grid, kMwThreads, 0, stream>>>(codes, N, k, keys);
+      return launch_mw<4>(codes, N, k, keys, stream);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -82,6 +82,8 @@ _SIGNATURES = {
     "kmd_lrt_filter": (_i, [_vp, _ll, _i, _i, _i, _f, _f, _f, _vp, _vp, _vp, _vp, _vp]),
     "kmd_canonical_kmers_tile_windows": (_ll, []),
     "kmd_canonical_kmers": (_i, [_vp, _ll, _i, _vp, _vp]),
+    "kmd_canonical_kmers_mw_tile_windows": (_ll, [_i]),
+    "kmd_canonical_kmers_mw_run_windows": (_ll, [_i]),
     "kmd_canonical_kmers_mw": (_i, [_vp, _ll, _i, _vp, _vp]),
     "kmd_run_encode_tile_rows": (_ll, [_i]),
     "kmd_run_encode": (_i, [_vp, _ll, _i, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp,
@@ -101,6 +103,7 @@ _SIGNATURES = {
     "kmd_run_rows": (_i, [_vp, _ll, _vp, _vp, _ll, _vp, _vp, _vp, _i, _i, _vp, _vp]),
     "kmd_geno_sample": (_i, [_vp, _ll, _u, _u, _vp, _vp]),
     "kmd_geno_sample_mw": (_i, [_vp, _ll, _ll, _i, _u, _u, _vp, _vp]),
+    "kmd_int_gram_scratch_words": (_ll, [_ll, _i]),
     "kmd_int_gram": (_i, [_vp, _ll, _i, _vp, _vp, _vp]),
     "kmd_irls_max_features": (_i, []),
     "kmd_irls_layout": (_ll, [_i, _i, _i, _i, _ll, _vp, _vp]),

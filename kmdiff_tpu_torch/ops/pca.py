@@ -28,7 +28,11 @@ def int_gram_plain(X: torch.Tensor) -> torch.Tensor:
 
 def int_gram(X: torch.Tensor) -> torch.Tensor:
     """K-GRAM: X [B, S] uint8 (0/1; any nonzero counts as 1) -> X^T X as
-    [S, S] int64."""
+    [S, S] int64. Up to 256 samples, one launch and one device operation:
+    the kernel packs the bits and takes the popcounts in one pass, into
+    per-block partial sums that it folds behind one grid-wide sync; above,
+    a memset, a packing kernel and a tiled popcount kernel. Either form's
+    scratch (partial sums or packed bits) comes from torch.empty."""
     if X.device.type == "cpu":
         return int_gram_plain(X)
     kernels.require_cuda_tensor("int_gram X", X, torch.uint8)
@@ -38,10 +42,13 @@ def int_gram(X: torch.Tensor) -> torch.Tensor:
     if not B or not S:
         return torch.zeros((S, S), dtype=torch.int64, device=X.device)
     gram = torch.empty((S, S), dtype=torch.int64, device=X.device)
-    bits = torch.empty(S * (-(-B // 32)), dtype=torch.int32, device=X.device)
     with torch.cuda.device(X.device):
+        words = kernels.lib().kmd_int_gram_scratch_words(B, S)
+        if words < 0:
+            raise RuntimeError(f"int_gram: K-GRAM cannot plan [{B}, {S}]")
+        scratch = torch.empty(words, dtype=torch.int32, device=X.device)
         kernels.launch("int_gram", "kmd_int_gram", X.data_ptr(), B, S,
-                       bits.data_ptr(), gram.data_ptr())
+                       scratch.data_ptr(), gram.data_ptr())
     return gram
 
 

@@ -1,5 +1,6 @@
-"""`count` and `diff` walls of one or two checkouts of kmdiff_tpu_torch on
-the bench cohort, on a CUDA card, one process a checkout.
+"""`count` and `diff` walls, and the k = 63 `run`'s, of one or two
+checkouts of kmdiff_tpu_torch on the bench cohort, on a CUDA card, one
+process a checkout.
 
 Run from the root of a checkout:
 
@@ -8,9 +9,11 @@ Run from the root of a checkout:
 
 The second form imports kmdiff_tpu_torch from DIR (its kernels build under
 DIR/build/), loads its kernels and native library, then times `count`
-(k = 31, 4 partitions, hard-min 1, 4 threads) and `diff` (-1 10 -2 10, the
-defaults, 4 threads) through its CLI on the cohort simulated under SIM,
-REPS times, each into fresh directories, and prints one JSON line. The
+(k = 31, 4 partitions, hard-min 1, 4 threads), `diff` (-1 10 -2 10, the
+defaults, 4 threads) and `run` at k = RUN_K with the same flags
+(chip_smoke.py phase 7's `run` (a)) through its CLI on the cohort
+simulated under SIM, REPS times, each into fresh directories, and prints
+one JSON line. The
 first simulates the cohort once with this checkout's popsim (the bench
 cohort of chip_smoke.py: 10 + 10 samples of a 2^23 bp genome, 150 bp reads,
 coverage 1, error rate 0.001, seed 7), then runs the second form in turns,
@@ -39,6 +42,9 @@ N_CONTROLS = N_CASES = 10
 #: count + diff runs a process, and rounds of other, this, this, other
 REPS = 3
 TURNS = 2
+#: the k of the timed `run` (two words, the second right-aligned)
+RUN_K = 63
+STAGES = ("count", "diff", f"run_k{RUN_K}")
 
 
 def measure(root: str, sim: str) -> dict:
@@ -55,7 +61,7 @@ def measure(root: str, sim: str) -> dict:
     native.available()
     work = os.path.join(os.path.abspath(root), "build", "count_diff_walls")
     shutil.rmtree(work, ignore_errors=True)
-    out = {"root": root, "count": [], "diff": []}
+    out = {"root": root, **{stage: [] for stage in STAGES}}
     for r in range(REPS):
         run = os.path.join(work, f"run{r}")
         t0 = time.perf_counter()
@@ -67,6 +73,12 @@ def measure(root: str, sim: str) -> dict:
         main(["diff", "--km-run-dir", run, "-1", "10", "-2", "10", "--threads", "4",
               "--output-dir", os.path.join(work, f"out{r}")], device=dev)
         out["diff"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        main(["run", "--file", os.path.join(sim, "fof.txt"), "--kmer-size", str(RUN_K),
+              "--hard-min", "1", "--nb-partitions", "4", "--threads", "4", "-1", "10",
+              "-2", "10", "--run-dir", os.path.join(work, f"fused{r}"),
+              "--output-dir", os.path.join(work, f"fused_out{r}")], device=dev)
+        out[f"run_k{RUN_K}"].append(time.perf_counter() - t0)
     shutil.rmtree(work, ignore_errors=True)
     return out
 
@@ -97,8 +109,8 @@ def paired(other: str) -> None:
             print(line)
             run = json.loads(line)
             side = walls.setdefault("this" if root == REPO else "other",
-                                    {"count": [], "diff": []})
-            for stage in ("count", "diff"):
+                                    {stage: [] for stage in STAGES})
+            for stage in STAGES:
                 side[stage] += run[stage][1:]
     shutil.rmtree(sim, ignore_errors=True)
     for side, w in walls.items():

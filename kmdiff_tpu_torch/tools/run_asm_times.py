@@ -6,11 +6,8 @@ Run on a CUDA card from the root of a checkout:
     python3 kmdiff_tpu_torch/tools/run_asm_times.py --root DIR
     python3 kmdiff_tpu_torch/tools/run_asm_times.py --paired OTHER_DIR
 
-The first form imports kmdiff_tpu_torch from DIR (its kernels build under
-DIR/build/) and prints one JSON line. The second runs the first form four
-times, in turns: OTHER_DIR, this checkout, this checkout, OTHER_DIR (a
-`git archive` of another commit unpacked under a directory that
-.gitignore lists), and prints the card, the four lines and a table.
+The two forms are tools/paired_runs.py's: one checkout's JSON line, or
+four in turns with another checkout's and a table.
 
 Inputs and timers are this checkout's chip_smoke.py's (run_inputs,
 assemble_plan, median_ms, events_ms). Calls, in the forms the main path
@@ -32,26 +29,13 @@ host cost of a wrapper's pieces alone (wrapper_parts).
 
 from __future__ import annotations
 
-import argparse
-import importlib.util
 import json
 import os
-import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-REPO = os.path.dirname(os.path.dirname(HERE))
+import paired_runs
+
 _DEVICE_CATS = ("kernel", "gpu_memset", "gpu_memcpy")
-
-
-def _smoke():
-    """This checkout's chip_smoke.py, loaded by path (its helpers import
-    only torch)."""
-    spec = importlib.util.spec_from_file_location(
-        "_chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _profile(fn, kernel: str, reps: int = 10) -> tuple[float, float]:
@@ -198,7 +182,7 @@ def measure(root: str) -> dict:
 
     if not kmdiff_tpu_torch.__file__.startswith(os.path.abspath(root)):
         raise AssertionError(f"kmdiff_tpu_torch came from {kmdiff_tpu_torch.__file__}")
-    smoke = _smoke()
+    smoke = paired_runs.smoke()
     kernels.lib()
     dev = torch.device("cuda", 0)
     trace_dir = os.path.join(os.path.abspath(root), "build", "tools")
@@ -240,39 +224,5 @@ def measure(root: str) -> dict:
     return out
 
 
-def paired(other: str) -> None:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(smi)
-    runs = []
-    for root in (other, REPO, REPO, other):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--root", root],
-                              capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            sys.stderr.write(proc.stderr)
-            raise SystemExit(f"run_asm_times failed for {root}")
-        line = proc.stdout.strip().splitlines()[-1]
-        print(line)
-        runs.append(json.loads(line))
-    keys = [k for k in runs[0] if isinstance(runs[0][k], dict)]
-    print("time (ms) | " + " | ".join(r["root"] for r in runs))
-    for k in keys:
-        for field in ("ms", "queued_ms", "device_ms", "kernel_ms"):
-            print(f"{k} {field} | " + " | ".join(f"{r[k][field]:.4f}" for r in runs))
-
-
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    group = ap.add_mutually_exclusive_group(required=True)
-    group.add_argument("--root", help="checkout to import kmdiff_tpu_torch from")
-    group.add_argument("--paired", help="other checkout, timed in turns with this one")
-    args = ap.parse_args()
-    if args.paired:
-        paired(args.paired)
-    else:
-        print(json.dumps(measure(args.root)))
-
-
 if __name__ == "__main__":
-    main()
+    paired_runs.main(__doc__, measure, __file__)

@@ -21,12 +21,18 @@ full merge on the card against the CPU; the wide sums: K-RUN's full form
 and on offset views, K-LRT on int64 sums (the wide pairs form and a thread
 a row), K-ROWS on counts of 2^31 and 2^32 - 1, K-ASM given no control
 streams; K-GRAM at 0, 1 and ragged row
-counts and S from 1 to 200; K-IRLS with singular, separable and
+counts and S from 1 to 2000, at 31-65, 2^16 + 7 and 2^20 + 5 rows (blocks
+in several super-chunks), all zero and all one, on views at odd byte
+offsets and a second stream, one device operation a call up to 256
+samples, and its tiled form from 257 to 16,385 samples; K-IRLS with singular, separable and
 max-iteration items, F up to 64 and a design above 48 KB of shared memory,
 and each item's outputs bit-identical alone and among 1,023 others; the
 multi-word forms (k > 32, [nw, N] word-major keys) at nw = 2, 3 and 4:
 K-EXT at k = 33-128 from one window to 70,001 codes with an all-G
-stretch, all INVALID and byte-offset views, K-RUN in all five forms at N =
+stretch, all INVALID and byte-offset views, at a thread's run and a tile
+plus or minus one window, with an INVALID code at a run's first and last
+code and at window positions 31-96 where the carries cross words, on views
+at byte offsets 1 to 15, K-RUN in all five forms at N =
 1 to 9,001 around its tile, with sentinel tails, all sentinel, a run
 across tiles and a view of a wider buffer, K-GENO on views, K-ASM with 1,
 2 and 20 streams and empty slices, the merges and the resident count on
@@ -987,6 +993,84 @@ def test_int_gram(dev, B, S):
     assert kernels.launch_counts()["int_gram"] == before + (1 if B else 0)
 
 
+GRAM_B = [31, 32, 33, 63, 64, 65, (1 << 16) + 7]
+GRAM_S = [1, 16, 17, 20, 33, 200, 256, 257]
+
+
+@pytest.mark.parametrize("S", GRAM_S)
+def test_int_gram_edges(dev, S):
+    """K-GRAM around its 32-row words, at 2^16 + 7 rows, at S around its
+    8-sample micro-tiles, its 32-sample slabs and its two forms (256
+    samples fused, 257 tiled), on values 0..3 (any nonzero is 1), all-zero
+    and all-one blocks; one launch a call."""
+    rng = np.random.default_rng(S + 900)
+    blocks = [(rng.random((B, S)) < 0.35) * rng.integers(1, 4, (B, S)) for B in GRAM_B]
+    blocks += [np.zeros((65, S)), np.ones((65, S)), np.ones(((1 << 16) + 7, S))]
+    for X in blocks:
+        X = torch.from_numpy(X.astype(np.uint8)).to(dev)
+        before = kernels.launch_counts()["int_gram"]
+        _eq(pca.int_gram(X), pca.int_gram_plain(X))
+        assert kernels.launch_counts()["int_gram"] == before + 1
+
+
+@pytest.mark.parametrize("B,S", [((1 << 20) + 5, 256), ((1 << 20) + 5, 129),
+                                 (1 << 16, 2000)])
+def test_int_gram_super_chunks(dev, B, S):
+    """Fused blocks whose rows outgrow the packed words' shared budget
+    (three super-chunks a block at 256 samples, later ones adding into
+    their partial sums), and the tiled form at 2000 samples."""
+    rng = np.random.default_rng(S + 902)
+    X = torch.from_numpy((rng.random((B, S)) < 0.3).astype(np.uint8)).to(dev)
+    _eq(pca.int_gram(X), pca.int_gram_plain(X))
+
+
+@pytest.mark.parametrize("S", [4099, 12_280, 12_281, 16_384, 16_385])
+def test_int_gram_many_samples(dev, S):
+    """The tiled form where a 32-row word's packed samples would outgrow
+    the fused form's shared budget (from 12,281 on) and past 16,384
+    samples, on 77 rows (three words, the last cut)."""
+    rng = np.random.default_rng(S + 903)
+    X = torch.from_numpy((rng.random((77, S)) < 0.3).astype(np.uint8)).to(dev)
+    before = kernels.launch_counts()["int_gram"]
+    _eq(pca.int_gram(X), pca.int_gram_plain(X))
+    assert kernels.launch_counts()["int_gram"] == before + 1
+
+
+def test_int_gram_views_and_one_device_op(dev):
+    """A row slice at an odd byte offset (X's first and last 16-byte
+    chunks cut), calls on a second stream, and one device operation a call
+    (no memset, no copy) in the fused form."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(901)
+    big = torch.from_numpy((rng.random((70_001, 21)) < 0.5).astype(np.uint8)).to(dev)
+    for lead in (1, 3, 7):
+        X = big[lead : lead + 40_000]
+        assert X.data_ptr() % 16 != 0
+        _eq(pca.int_gram(X), pca.int_gram_plain(X))
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got = pca.int_gram(big)
+    side.synchronize()
+    _eq(got, pca.int_gram_plain(big))
+    X = big[:65_543]
+    pca.int_gram(X)
+    torch.cuda.synchronize()
+    # a torch.profiler session now and then drops a device record: up to
+    # three sessions, until one records all five calls
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                pca.int_gram(X)
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert len(ops) <= 5 and all("gram" in name for name in ops), ops
+        if len(ops) == 5:
+            break
+    assert len(ops) == 5, ops
+
+
 def _irls_inputs(rng, B, n, F, dev):
     y = np.concatenate([np.ones(n // 2), np.zeros(n - n // 2)])
     X = np.column_stack([np.ones(n), rng.normal(size=(n, F - 2))])
@@ -1123,10 +1207,10 @@ K_MW = [33, 63, 64, 65, 96, 97, 127, 128]
 
 @pytest.mark.parametrize("k", K_MW)
 def test_canonical_kmers_mw(dev, k):
-    """K-EXT's multi-word form at one window, around its 256-window block,
-    at an odd length with INVALID codes, an all-G stretch (canonical as
-    all-C, never the sentinel), all INVALID, and on views at byte offsets 1
-    to 3."""
+    """K-EXT's multi-word form at one window, at 256 and 257 windows, at an
+    odd length with INVALID codes, an all-G stretch (canonical as all-C,
+    never the sentinel), all INVALID, and on views at byte offsets 1 to
+    3."""
     rng = np.random.default_rng(k + 300)
     before = kernels.launch_counts()["canonical_kmers_mw"]
     for n in (k, k + 255, k + 256, 70_001):
@@ -1143,6 +1227,72 @@ def test_canonical_kmers_mw(dev, k):
     assert (codec.canonical_kmers(bad, k) == codec.SENTINEL).all()
     assert codec.canonical_kmers(bad[: k - 1], k).shape == ((k + 31) // 32, 0)
     assert kernels.launch_counts()["canonical_kmers_mw"] == before + 17
+
+
+def _mw_tile_and_run(k):
+    """The multi-word kernel's windows a tile and a thread's run at k."""
+    nw = (k + 31) // 32
+    lib = kernels.lib()
+    return lib.kmd_canonical_kmers_mw_tile_windows(nw), lib.kmd_canonical_kmers_mw_run_windows(nw)
+
+
+def _ext_mw_check(c, k):
+    before = kernels.launch_counts()["canonical_kmers_mw"]
+    _eq(codec.canonical_kmers(c, k), codec.canonical_kmers_mw_plain(c, k))
+    assert kernels.launch_counts()["canonical_kmers_mw"] == before + 1
+
+
+@pytest.mark.parametrize("k", K_MW)
+def test_canonical_kmers_mw_run_and_tile_lengths(dev, k):
+    """Window counts at a thread's run and at a tile, each plus or minus
+    one window, and at two tiles plus one."""
+    tile, run = _mw_tile_and_run(k)
+    rng = np.random.default_rng(k + 400)
+    for w in (1, run - 1, run, run + 1, tile - 1, tile, tile + 1, 2 * tile + 1):
+        codes = rng.integers(0, 4, w + k - 1).astype(np.uint8)
+        codes[rng.random(len(codes)) < 0.003] = codec.INVALID
+        _ext_mw_check(torch.from_numpy(codes).to(dev), k)
+
+
+def _mw_invalid_positions(k, run, tile, n):
+    """Code positions of the edge cases: the first and the last code of a
+    thread's run, and window positions 31, 32, 63, 64, 95 and 96 of a run's
+    first window (where the carries cross words), for runs at the start of
+    a tile, inside it and at its end."""
+    out = set()
+    for r0 in (0, run, 5 * run, tile - run, tile):
+        out |= {r0, r0 + run + k - 2, r0 + k - 1, r0 + run - 1}
+        out |= {r0 + p for p in (31, 32, 63, 64, 95, 96)}
+    return sorted(p for p in out if p < n)
+
+
+@pytest.mark.parametrize("k", K_MW)
+def test_canonical_kmers_mw_invalid_positions(dev, k):
+    tile, run = _mw_tile_and_run(k)
+    n = 2 * tile + k - 1
+    rng = np.random.default_rng(k + 500)
+    base = torch.from_numpy(rng.integers(0, 4, n).astype(np.uint8)).to(dev)
+    for p in _mw_invalid_positions(k, run, tile, n):
+        codes = base.clone()
+        codes[p] = int(codec.INVALID)
+        _ext_mw_check(codes, k)
+
+
+@pytest.mark.parametrize("k", K_MW)
+def test_canonical_kmers_mw_misaligned_views(dev, k):
+    """Views at byte offsets 1 to 15 of their allocation, short and across
+    tiles: the first chunk of the stream is copied byte by byte."""
+    tile, _run = _mw_tile_and_run(k)
+    rng = np.random.default_rng(k + 600)
+    codes = rng.integers(0, 4, 2 * tile + 300).astype(np.uint8)
+    codes[rng.random(len(codes)) < 0.01] = codec.INVALID
+    base = torch.from_numpy(codes).to(dev)
+    assert base.data_ptr() % 16 == 0
+    for lead in range(1, 16):
+        for n in (k, k + 40, tile + k - 1 - lead, 2 * tile + 300 - lead):
+            view = base[lead : lead + n]
+            assert view.data_ptr() % 16 == lead
+            _ext_mw_check(view, k)
 
 
 def _mw_sorted(rng, nw, n, n_pool, tail=0):

@@ -6,6 +6,8 @@ resident count, K-ASM's chunk rows, and the key-range plans' leading-word
 cuts. Every output is an integer, so every comparison is exact.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -61,6 +63,80 @@ def test_canonical_kmers_mw_twin_matches_jax(k):
     cc = jcodec.lanes_to_words([np.asarray(x) for x in jcodec.extract_canonical_lanes(
         np.ones(k, np.uint8), k)[0]])
     assert (words[allg] == cc[0]).all()
+
+
+#: the k of each word count's edges (33 and 64 bound two words, 65 and 96
+#: three, 97 and 128 four; 63 is the reference's Kmer<64>)
+K_MW = [33, 63, 64, 65, 96, 97, 127, 128]
+#: the multi-word kernel's windows a thread's run at nw words
+#: (csrc/canonical_kmers.cu kMwRuns2-4; a tile is 128 runs; the CUDA tests
+#: read both from the built library)
+MW_RUNS = {2: 32, 3: 16, 4: 16}
+
+
+def _run_and_tile(k):
+    run = MW_RUNS[(k + 31) // 32]
+    return run, 128 * run
+
+
+@functools.cache
+def _edge_stream(k):
+    """Codes for two tiles of windows and one more, and the JAX lanes of
+    every window of them: the edge cases below compare the twin on this
+    stream or a piece of it with the matching slice of the JAX windows
+    (a window's key depends on its k codes alone)."""
+    rng = np.random.default_rng(k + 700)
+    codes = rng.integers(0, 4, 2 * _run_and_tile(k)[1] + k).astype(np.uint8)
+    codes[rng.random(len(codes)) < 0.003] = codec.INVALID
+    return codes, *_jax_words(codes, k)
+
+
+def _twin_words(codes, k):
+    return codec.keys_to_words(codec.canonical_kmers(torch.from_numpy(codes), k).numpy())
+
+
+def _mw_invalid_positions(k, n):
+    """The first and the last code of a thread's run, and window positions
+    31, 32, 63, 64, 95 and 96 of a run's first window (where the carries
+    cross words), for runs at the start of a tile, inside it and at its
+    end."""
+    RUN, TILE = _run_and_tile(k)
+    out = set()
+    for r0 in (0, RUN, 5 * RUN, TILE - RUN, TILE):
+        out |= {r0, r0 + RUN + k - 2, r0 + k - 1, r0 + RUN - 1}
+        out |= {r0 + p for p in (31, 32, 63, 64, 95, 96)}
+    return sorted(p for p in out if p < n)
+
+
+@pytest.mark.parametrize("edge", ["lengths", "invalid", "views"])
+@pytest.mark.parametrize("k", K_MW)
+def test_canonical_kmers_mw_edges_match_jax(k, edge):
+    """The twin against the JAX lanes on the multi-word kernel's edge
+    inputs: window counts at a run and a tile, each plus or minus one
+    window; one INVALID code at each edge position; the codes from byte
+    offsets 1 to 15 on, short and across tiles."""
+    codes, want, ok = _edge_stream(k)
+    RUN, TILE = _run_and_tile(k)
+    n = len(codes)
+    if edge == "lengths":
+        for w in (1, RUN - 1, RUN, RUN + 1, TILE - 1, TILE, TILE + 1, n - k + 1):
+            np.testing.assert_array_equal(_twin_words(codes[: w + k - 1], k), want[:w])
+    elif edge == "invalid":
+        clean = np.where(codes == codec.INVALID, 0, codes).astype(np.uint8)
+        for p in _mw_invalid_positions(k, n):
+            one = clean.copy()
+            one[p] = codec.INVALID
+            got = _twin_words(one, k)
+            np.testing.assert_array_equal(got, _jax_words(one, k)[0])
+            sent = (got == np.uint64(2**64 - 1)).all(1)
+            np.testing.assert_array_equal(np.flatnonzero(sent),
+                                          np.arange(max(0, p - k + 1), min(p, n - k) + 1))
+    else:
+        for lead in range(1, 16):
+            for m in (k, k + 40, TILE + k - 1 - lead, n - lead):
+                np.testing.assert_array_equal(_twin_words(codes[lead : lead + m], k),
+                                              want[lead : lead + m - k + 1])
+    assert (~ok).sum() > 0
 
 
 def test_canonical_kmers_mw_short_input_and_range():

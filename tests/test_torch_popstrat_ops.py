@@ -1,8 +1,9 @@
 """The port's popstrat kernels' plain twins against the JAX package, on
 inputs made from numpy seeds: K-GENO against the host sample_mask; the
 full merge (K-ROWS, K-GENO) against merge_lrt_kernel with rows and geno;
-K-GRAM and eigenstrat_pca against the JAX PCA forced through its device
-tiles; K-IRLS against the JAX batched IRLS in f32.
+K-GRAM (also at its edge shapes: 31-65 and 2^16 + 7 rows, 1-257 samples,
+all-zero and all-one blocks) and eigenstrat_pca against the JAX PCA forced
+through its device tiles; K-IRLS against the JAX batched IRLS in f32.
 
 Tolerances: integers, masks, PCs and eigenvalues exactly equal (the PCA's
 integers are exact and its f64 host arithmetic is the same). The IRLS fits
@@ -137,6 +138,36 @@ def test_int_gram_matches_jax(B, S):
     got = pca.int_gram(torch.from_numpy(X))
     assert got.dtype == torch.int64 and got.shape == (S, S)
     np.testing.assert_array_equal(got.numpy().astype(np.float64), want)
+
+
+#: K-GRAM's edges: rows around its 32-row words and 2^16 + 7; samples
+#: around its 8-sample micro-tiles, 32-sample slabs and two forms (256
+#: fused, 257 tiled)
+GRAM_B = [31, 32, 33, 63, 64, 65, (1 << 16) + 7]
+GRAM_S = [1, 16, 17, 20, 33, 200, 256, 257]
+
+
+@pytest.mark.parametrize("S", GRAM_S)
+@pytest.mark.parametrize("B", GRAM_B)
+def test_int_gram_edges_match_jax(B, S):
+    """The twin against the JAX Gram (through its device tiles past 64
+    rows) at K-GRAM's edge shapes, on values 0..3 (any nonzero counts as
+    1, as the JAX PCA's 0/1 geno matrix has it)."""
+    rng = np.random.default_rng(B * 1000 + S)
+    X = ((rng.random((B, S)) < 0.35) * rng.integers(1, 4, (B, S))).astype(np.uint8)
+    want = jpca._int_gram((X != 0).astype(np.uint8), block_rows=64)
+    got = pca.int_gram(torch.from_numpy(X))
+    assert got.dtype == torch.int64 and got.shape == (S, S)
+    np.testing.assert_array_equal(got.numpy().astype(np.float64), want)
+
+
+@pytest.mark.parametrize("fill", [0, 1])
+@pytest.mark.parametrize("B,S", [(65, 20), ((1 << 16) + 7, 257)])
+def test_int_gram_constant_blocks_match_jax(B, S, fill):
+    X = np.full((B, S), fill, np.uint8)
+    want = jpca._int_gram(X, block_rows=64)
+    np.testing.assert_array_equal(pca.int_gram(torch.from_numpy(X)).numpy(), want)
+    assert int(want.max()) == B * fill
 
 
 @pytest.mark.parametrize("diploid", [True, False])
