@@ -62,7 +62,9 @@ Run from the root of a checkout, with no arguments:
    streams (p16, and raw counts with sample ids), K-GENO on 2^23 two-word
    keys as a view of a wider buffer, each with its device time (20 queued
    launches; K-RUN's from torch.profiler, as its call waits for its count).
-   Integers, masks and
+   Also plan_key_chunks (the fused merge's chunk plan, plain torch) on
+   phase 4's plan shape, 20 streams of 4,700,000 keys, timed as a whole
+   call beside its bytes bound. Integers, masks and
    statistics must be equal; lr within rtol 1e-6 and atol 1e-6;
    K-IRLS with an f64 refit as witness: iteration counts equal on 97% of
    the items, and on the fits the witness finds at a maximum the stop
@@ -131,6 +133,19 @@ Run from the root of a checkout, with no arguments:
    phase 5's rules. k = 128 (four words): `count` and `diff` as at k = 63.
    Launch counts reset before each part; each must launch the multi-word
    forms of its kernels and no one-word K-EXT, K-RUN, K-ASM or K-GENO.
+8. Custom model plugins, `call` and `infos` on phase 3's run directory
+   (run_plugins): `diff --model` with the port's device twin
+   (examples/plugins/device_fold_change_model.py, process_block_torch; on
+   CUDA through a spy, `--model __main__:spy_device_model`, whose tiles
+   must all be CUDA tensors of at most BLOCK_ROWS rows, every row scored
+   once) and again with device="cpu": FASTA byte-identical; with the numpy
+   twin on CUDA: the same k-mer sets and tallies; no run launches K-LRT.
+   `run --model` with the device twin into a fresh run directory: the
+   standard flow (K-EXT and K-RUN launched, K-ASM and K-LRT not), its
+   FASTA byte-identical to the CUDA `diff --model`'s. `call` of phase 3's
+   loose case k-mers against popsim's truth.fasta must map some; `infos`
+   on CUDA must name the card. Each step's wall is printed, with the host
+   union merge's and the scoring's seconds summed over the partitions.
 
 Then it prints every kernel's launches on each path, and fails if any
 module of JAX or of the JAX package (kmdiff_tpu) was loaded.
@@ -465,6 +480,7 @@ def compare_kernels(dev) -> dict:
           f"{compact_costs(sparse, values)[0]}")
 
     out["assemble_chunk"] = compare_assemble(dev)
+    time_plan_key_chunks(dev)
     out["weighted_runs"] = compare_weighted_runs(dev)
     out["abundance_hist"] = compare_stats(dev, rng)
     out["geno_sample"] = compare_geno(dev, rng)
@@ -1231,6 +1247,43 @@ def compare_assemble(dev):
               f"{res[name]['bound_ms'] / dev_ms:.1%} of it over the device "
               f"time; library: none (no one call)")
     return res["p16"]
+
+
+def time_plan_key_chunks(dev) -> None:
+    """plan_key_chunks (pipeline/fused.py: the port of _bounds_pos_impl and
+    _subsample_split_impl, plain torch: a strided subsample of every
+    stream's keys read to the host, quantile bounds, torch.searchsorted) on
+    phase 4's plan: 20 resident streams of 4,700,000 keys (~94 M rows) cut
+    into chunks of at most FUSED_CHUNK_ROWS. Whole calls (the plan is read
+    on the host). Bound: the subsample's keys read, each bound's binary
+    search (ceil(log2(U + 1)) keys a stream), the bounds in, the plan out."""
+    import math
+
+    import numpy as np
+
+    from kmdiff_tpu_torch.pipeline import fused
+
+    S, U = N_CONTROLS + N_CASES, 4_700_000
+    keys, counts = _random_streams(dev, S, U, 5, 1 << 15)
+    streams = [fused.ResidentStream(k, c, U, 0, np.zeros(fused.HIST_BINS, np.int64),
+                                    U, U) for k, c in zip(keys, counts)]
+    starts, lens = fused.plan_key_chunks(streams)
+    C = len(lens)
+    ends = starts + lens
+    if (int(lens.sum(1).max()) > fused.FUSED_CHUNK_ROWS or starts[0].any()
+            or (ends[:-1] != starts[1:]).any() or (ends[-1] != U).any()):
+        raise AssertionError(f"plan_key_chunks: a plan of {C} chunks does not "
+                             f"tile the {S} streams within the budget")
+    ms = median_ms(lambda: fused.plan_key_chunks(streams))
+    stride = min(1024, max(1, fused.FUSED_CHUNK_ROWS // 32))
+    pooled = S * -(-U // stride)
+    probes = (C - 1) * S * math.ceil(math.log2(U + 1))
+    b_ms, b_by = bound(8 * (pooled + probes + C - 1) + 16 * C * S)
+    print(f"[plan_key_chunks] {S} streams x {U} keys -> {C} chunks (at most "
+          f"{int(lens.sum(1).max())} rows): {ms:.4f} ms a whole call "
+          f"(median of 15); bound {b_ms:.6f} ms ({b_by}: {pooled} subsampled "
+          f"keys, {probes} search probes), {b_ms / ms:.2%} of it; plain: "
+          f"itself (plain torch); library: none")
 
 
 def compare_weighted_runs(dev):
@@ -2280,6 +2333,202 @@ def run_multiword(dev, phase3) -> dict:
     return out
 
 
+#: phase 8's plugins: the port's twins of the JAX package's examples
+PLUGINS = os.path.join(HERE, "kmdiff_tpu_torch", "examples", "plugins")
+#: (device type, rows) of every tile phase 8's spy plugin was given
+SPY_TILES: list = []
+
+
+def spy_device_model(config: str):
+    """`--model __main__:spy_device_model` in phase 8: the port's device
+    twin, recording the device and rows of each tile it scores."""
+    from kmdiff_tpu_torch.examples.plugins.device_fold_change_model import (
+        DeviceFoldChangeModel,
+    )
+
+    class SpyDeviceModel(DeviceFoldChangeModel):
+        def process_block_torch(self, counts, nb_controls):
+            SPY_TILES.append((counts.device.type, counts.shape[0]))
+            return super().process_block_torch(counts, nb_controls)
+
+    return SpyDeviceModel(float(config) if config else 2.0)
+
+
+class PluginWalls:
+    """Sums, in this process, the seconds of the host union merge
+    (merge_sorted_streams) and of a custom model's scoring
+    (PartitionProcessor._plugin_scores) over the partitions of one command;
+    they run on its worker threads, so the sums may exceed its wall."""
+
+    def __enter__(self):
+        import threading
+
+        from kmdiff_tpu_torch.pipeline import merge
+
+        self.merge = merge
+        self.saved = (merge.merge_sorted_streams,
+                      merge.PartitionProcessor._plugin_scores)
+        self.t = {"union": 0.0, "score": 0.0}
+        lock = threading.Lock()
+
+        def timed(key, fn):
+            def call(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    with lock:
+                        self.t[key] += time.perf_counter() - t0
+            return call
+
+        merge.merge_sorted_streams = timed("union", self.saved[0])
+        merge.PartitionProcessor._plugin_scores = timed("score", self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        (self.merge.merge_sorted_streams,
+         self.merge.PartitionProcessor._plugin_scores) = self.saved
+        return False
+
+
+def _kmer_sets(out) -> tuple[dict, dict]:
+    """({group: k-mer set}, {group: record count}) of a diff's FASTA."""
+    sets, tallies = {}, {}
+    for g in ("control", "case"):
+        recs = _read_fasta(os.path.join(out, f"{g}_kmers.fasta"))
+        sets[g] = {seq for _name, seq in recs}
+        tallies[g] = len(recs)
+    return sets, tallies
+
+
+def run_plugins(dev, phase3) -> dict:
+    """Phase 8: custom model plugins, `call` and `infos` on phase 3's cohort
+    (10 + 10 samples, k = 31, 4 partitions). `diff --model` with the port's
+    device twin on CUDA (a spy around it records each tile's device) and on
+    the CPU, byte-identical; with the numpy twin on CUDA, the same k-mer sets
+    and tallies; none launches K-LRT. `run --model` with the device twin into
+    a fresh run directory: the standard flow, count's kernels launched and
+    K-ASM not, the FASTA byte-identical to the CUDA `diff --model`'s. `call`
+    maps phase 3's loose case k-mers onto popsim's truth.fasta; `infos` on
+    CUDA names the card. Each step's wall is printed. Returns the launch
+    counts of the CUDA `diff --model` and of `run --model`."""
+    import contextlib
+    import io
+
+    import torch
+
+    from kmdiff_tpu_torch import kernels
+    from kmdiff_tpu_torch.cli import main
+    from kmdiff_tpu_torch.pipeline.merge import BLOCK_ROWS
+
+    device_twin = os.path.join(PLUGINS, "device_fold_change_model.py")
+    base = ["diff", "--km-run-dir", phase3["run"], "-1", str(N_CONTROLS),
+            "-2", str(N_CASES), "--threads", "4"]
+    launches, outs = {}, {}
+    for label, model, where in (
+        ("device twin, CUDA", "__main__:spy_device_model", dev),
+        ("device twin, CPU", device_twin, "cpu"),
+        ("numpy twin", os.path.join(PLUGINS, "fold_change_model.py"), dev),
+    ):
+        out = outs[label] = os.path.join(WORK, f"plugin_{len(outs)}")
+        SPY_TILES.clear()
+        kernels.reset_launch_counts()
+        with PluginWalls() as walls:
+            t0 = time.perf_counter()
+            main([*base, "--model", model, "--output-dir", out], device=where)
+            wall = time.perf_counter() - t0
+        launches[label] = kernels.launch_counts()
+        if launches[label]["lrt_filter"]:
+            raise AssertionError(f"diff --model ({label}) launched K-LRT")
+        with open(os.path.join(out, "options.json")) as f:
+            tested = json.load(f)["total_kmers"]
+        sets, tallies = _kmer_sets(out)
+        print(f"[plugins] diff --model, {label}: {wall:.3f} s (wall; host "
+              f"union merge {walls.t['union']:.3f} s and scoring "
+              f"{walls.t['score']:.3f} s summed over 4 partitions on 4 "
+              f"threads); {tested} k-mers tested, significant {tallies}; "
+              f"launches {sum(launches[label].values())}")
+        if label == "device twin, CUDA":
+            kinds = {kind for kind, _n in SPY_TILES}
+            rows = sum(n for _kind, n in SPY_TILES)
+            if kinds != {dev.type} or rows != tested or max(
+                    n for _kind, n in SPY_TILES) > BLOCK_ROWS:
+                raise AssertionError(
+                    f"the device twin's tiles: devices {kinds}, {rows} rows "
+                    f"of {tested}, {len(SPY_TILES)} tiles")
+            print(f"[plugins] the device twin scored {len(SPY_TILES)} tiles "
+                  f"on {kinds}, at most {BLOCK_ROWS} rows each, {rows} rows "
+                  f"in all")
+            want_sets, want_tallies = sets, tallies
+            if not tallies["control"] or not tallies["case"]:
+                raise AssertionError(f"diff --model kept no k-mer: {tallies}")
+        elif label == "device twin, CPU":
+            for g in ("control", "case"):
+                if not _same_bytes(
+                        os.path.join(outs["device twin, CUDA"], f"{g}_kmers.fasta"),
+                        os.path.join(out, f"{g}_kmers.fasta")):
+                    raise AssertionError(f"device twin {g}_kmers.fasta: CUDA "
+                                         "and CPU differ")
+            print("[plugins] device twin: CUDA and CPU FASTA byte-identical")
+        elif (sets, tallies) != (want_sets, want_tallies):
+            raise AssertionError(f"numpy twin {tallies} and device twin "
+                                 f"{want_tallies}: k-mer sets or tallies differ")
+        else:
+            print("[plugins] numpy twin: the device twin's k-mer sets and "
+                  "tallies")
+
+    run_dir = os.path.join(WORK, "plugin_run_dir")
+    out = os.path.join(WORK, "plugin_run")
+    kernels.reset_launch_counts()
+    with PluginWalls() as walls:
+        t0 = time.perf_counter()
+        main(["run", "--file", phase3["fof"], "--kmer-size", "31",
+              "--hard-min", "1", "--nb-partitions", "4", "--threads", "4",
+              "-d", run_dir, "-1", str(N_CONTROLS), "-2", str(N_CASES),
+              "--model", device_twin, "-o", out], device=dev)
+        wall = time.perf_counter() - t0
+    launches["run --model"] = run_l = kernels.launch_counts()
+    require_launches("run --model", run_l, ("canonical_kmers", "run_bounds"))
+    if run_l["assemble_chunk"] or run_l["lrt_filter"]:
+        raise AssertionError(f"run --model left the standard flow: {run_l}")
+    for g in ("control", "case"):
+        if not _same_bytes(os.path.join(out, f"{g}_kmers.fasta"), os.path.join(
+                outs["device twin, CUDA"], f"{g}_kmers.fasta")):
+            raise AssertionError(f"run --model {g}_kmers.fasta differs from "
+                                 "diff --model's")
+    print(f"[plugins] run --model (device twin, CUDA): {wall:.3f} s (wall; "
+          f"host union merge {walls.t['union']:.3f} s and scoring "
+          f"{walls.t['score']:.3f} s summed); the standard flow, FASTA "
+          f"byte-identical to diff --model's; launches {run_l}")
+
+    calls = os.path.join(WORK, "calls.tsv")
+    t0 = time.perf_counter()
+    rc = main(["call", "-i", os.path.join(WORK, "loose_gpu", "case_kmers.fasta"),
+               "-r", os.path.join(WORK, "sim", "truth.fasta"), "-o", calls],
+              device=dev)
+    wall = time.perf_counter() - t0
+    with open(calls) as f:
+        rows = [line.split("\t") for line in f.read().splitlines()[1:]]
+    mapped = len({r[0] for r in rows})
+    queries = len(_read_fasta(os.path.join(WORK, "loose_gpu", "case_kmers.fasta")))
+    if rc != 0 or not mapped:
+        raise AssertionError(f"call returned {rc}, mapped {mapped} queries")
+    print(f"[call] phase 3's loose case k-mers on truth.fasta: {mapped} of "
+          f"{queries} mapped, {len(rows)} loci ({wall:.3f} s wall)")
+
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = main(["infos"], device=dev)
+    wall = time.perf_counter() - t0
+    name = torch.cuda.get_device_name(0)
+    if rc != 0 or name not in text.getvalue():
+        raise AssertionError(f"infos returned {rc} without {name!r}")
+    print(f"[infos] ({wall:.3f} s wall)\n" + text.getvalue().rstrip())
+    return {"diff --model": launches["device twin, CUDA"],
+            "run --model": run_l}
+
+
 def load_native() -> None:
     """Build and load the port's native host-IO library; it must come from
     the checkout's build/kmdiff_tpu_torch/native/."""
@@ -2345,13 +2594,15 @@ def main() -> int:
         del gram_groups
         wide_launches = run_wide(dev, phase3)
         mw_launches = run_multiword(dev, phase3)
+        plugin_launches = run_plugins(dev, phase3)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     paths = {"count+diff": phase3["launches"], "run (a)": fused_launches["a"],
              "run (b)": fused_launches["b"], "popstrat diff": pop_launches,
              "popstrat run": pop_run_launches, "wide diff": wide_launches["a"],
              "wide popstrat diff": wide_launches["b"],
-             "forced-wide run": wide_launches["c"], **mw_launches}
+             "forced-wide run": wide_launches["c"], **mw_launches,
+             **plugin_launches}
     for name in timings:
         print(f"[launches] {name}: " + ", ".join(
             f"{path} {launches[name]}" for path, launches in paths.items()))

@@ -15,6 +15,11 @@ hot loops as hand-written CUDA kernels for Hopper (``csrc/``, built by
           assembled there (K-ASM) -> diff's merge, test and output; the
           run directory written by background threads
 
+A custom model (`--model`, ``plugins``) takes no device merge: each
+partition is union-merged on the host and the model scores the rows, on
+the device through its ``process_block_torch`` (``examples/plugins/``).
+``call`` and ``infos`` are host-only.
+
 The host code (file formats, the f64 model, correctors, writers, popstrat's
 sampler and fits on the host, the native LZ4 and merge library) is the
 port's own copy of the JAX package's, under the same module names

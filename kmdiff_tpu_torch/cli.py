@@ -2,10 +2,10 @@
 
 build_parser has every subcommand, flag, default and dest of the JAX
 package's (kmdiff_tpu/cli.py, after the reference's src/cli.cpp:23-369), so
-a command line runs unchanged on either package. ``count``, ``diff``, ``run`` and
-``popsim`` run on the port; every other command, and every flag of a path
-not ported yet, raises NotImplementedError naming its item in ROADMAP.md's
-port queue.
+a command line runs unchanged on either package. ``count``, ``diff``, ``run``
+(with ``--model`` plugins), ``popsim``, ``call`` and ``infos`` run on the
+port; ``warmup``, and every flag of a path not ported yet, raises
+NotImplementedError naming its item in ROADMAP.md's port queue.
 """
 
 from __future__ import annotations
@@ -288,12 +288,6 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-_LATER_COMMANDS = {
-    "call": "item 8: infos and call",
-    "infos": "item 8: infos and call",
-}
-
-
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to kmdiff_tpu_torch yet "
@@ -307,17 +301,12 @@ def _reject_unported(args) -> None:
             "'warmup' only fills the XLA compile cache; the port compiles "
             "nothing ahead of time (ROADMAP.md: not to port)"
         )
-    if args.command in _LATER_COMMANDS:
-        raise _unported(f"the {args.command!r} command",
-                        _LATER_COMMANDS[args.command])
     if args.devices > 1:
         raise _unported(f"--devices {args.devices}", "item 7: multi-GPU")
     if args.distributed or args.num_processes or args.process_id >= 0:
         raise _unported("--distributed", "item 7: multi-GPU")
     if args.profile:
         raise _unported("--profile", "item 9: the H100 bench and its traces")
-    if args.command in ("diff", "run") and args.model_lib_path:
-        raise _unported("--model", "item 6: plugins")
 
 
 def count_options(args):
@@ -392,6 +381,24 @@ def main(argv: list[str] | None = None,
     from kmdiff_tpu_torch.utils.signals import init_signal_handlers
 
     init_signal_handlers()
+
+    if args.command == "infos":
+        from kmdiff_tpu_torch.cmd.infos import main_infos
+
+        print(main_infos(dev))
+        return 0
+
+    if args.command == "call":
+        # host-only: exact matches of the k-mers in a reference FASTA
+        from kmdiff_tpu_torch.pipeline.call import CallOptions, main_call
+
+        main_call(CallOptions(
+            kmer_file=args.kmer_file,
+            reference=args.reference,
+            output=args.output,
+            kmer_size=args.kmer_size,
+        ))
+        return 0
 
     if args.command == "popsim":
         # host-only cohort simulator, shared with the JAX package

@@ -4,7 +4,8 @@ process). Stages:
   1. load the run dir's config and per-sample totals (histograms)
   2. resume detection against the options manifest and spilled partitions
   3. per-partition merge + Poisson LR filter on the device (pipeline.merge),
-     with --pop-correction the geno sample and the survivors' count rows
+     with --pop-correction the geno sample and the survivors' count rows;
+     a custom model (--model) scores the host union merge instead
   4. optional population-stratification correction (pipeline.popstrat)
   5. multiple-testing correction + control/case FASTA|KFF
      (pipeline.aggregate)
@@ -43,12 +44,20 @@ from kmdiff_tpu_torch.utils.timer import Timer
 from kmdiff_tpu_torch.pipeline.merge import GlobalMerge, PartitionProcessor
 
 
-def _reject_unported(opt: DiffOptions) -> None:
-    if opt.model_lib_path:
-        raise NotImplementedError(
-            "--model is not ported to kmdiff_tpu_torch yet "
-            "(ROADMAP.md port queue item 6: plugins)"
+def load_custom_model(opt: DiffOptions):
+    """--model's plugin (plugins.load_model_plugin), or None without the
+    flag. A custom model drops --pop-correction, with the JAX package's
+    warning (kmdiff_tpu/cmd/diff.py:78-86)."""
+    if not opt.model_lib_path:
+        return None
+    from kmdiff_tpu_torch.plugins import load_model_plugin
+
+    if opt.pop_correction:
+        logger.warning(
+            "population stratification correction disabled with custom models."
         )
+        opt.pop_correction = False
+    return load_model_plugin(opt.model_lib_path, opt.model_config)
 
 
 def save_sk_dir(opt: DiffOptions) -> str | None:
@@ -86,9 +95,10 @@ def _make_accumulators(opt: DiffOptions, nb_partitions: int, kmer_size: int,
 
 
 def do_diff(opt: DiffOptions, config, accumulators, device: torch.device,
-            sampler=None) -> int:
-    """Merge + test stage (reference: diff.hpp:66-164); returns the number
-    of distinct k-mers tested."""
+            sampler=None, model=None) -> int:
+    """Merge + test stage (reference: diff.hpp:66-164) with `model`, the
+    Poisson likelihood when None; returns the number of distinct k-mers
+    tested."""
     timer = Timer()
     logger.info("Process partitions")
 
@@ -97,9 +107,9 @@ def do_diff(opt: DiffOptions, config, accumulators, device: torch.device,
     )
     logger.debug("Nb k-mers controls: %s", total_controls)
     logger.debug("Nb k-mers cases: %s", total_cases)
-    model = PoissonLikelihood(
-        opt.nb_controls, opt.nb_cases, total_controls, total_cases, opt.log_size
-    )
+    if model is None:
+        model = PoissonLikelihood(opt.nb_controls, opt.nb_cases,
+                                  total_controls, total_cases, opt.log_size)
     processor = PartitionProcessor(
         model, opt.nb_controls, opt.nb_cases,
         threshold=opt.threshold / opt.cutoff, device=device,
@@ -159,8 +169,9 @@ def main_diff(opt: DiffOptions, device: torch.device,
     the merge; a new popstrat setting redoes the correction from the
     merge's spills, and a rerun with intact popstrat spills aggregates the
     corrected ones; a new correction only redoes the output. timings, when
-    given, receives popstrat's "pca", "null_fit" and "alt_fits" seconds."""
-    _reject_unported(opt)
+    given, receives popstrat's "pca", "null_fit" and "alt_fits" seconds.
+    With --model the plugin is loaded (and refused) before anything else."""
+    model = load_custom_model(opt)
     whole = Timer()
     config = read_config(opt.kmtricks_dir)
     n_fof = len(read_fof(opt.kmtricks_dir))
@@ -208,7 +219,8 @@ def main_diff(opt: DiffOptions, device: torch.device,
         accumulators = _make_accumulators(
             opt, config.nb_partitions, config.kmer_size, part_dir, read=False
         )
-        opt.total_kmers = do_diff(opt, config, accumulators, device, sampler)
+        opt.total_kmers = do_diff(opt, config, accumulators, device, sampler,
+                                  model)
         if sampler is not None:
             sampler.close()
     else:

@@ -15,10 +15,10 @@ are let go, and popstrat corrects the hits (pipeline.popstrat) before the
 output. A cohort whose k-mer mass reaches 2^31 takes the full merge too,
 for its int64 group sums.
 
-Resumes (an existing options.json, or a run directory with every count
-file) take the standard count + diff flow, and so does a cohort the fused
-path cannot serve (FusedFallback) or a device allocation that fails during
-the fused attempt, on the same device.
+Custom models (--model) and resumes (an existing options.json, or a run
+directory with every count file) take the standard count + diff flow, and
+so does a cohort the fused path cannot serve (FusedFallback) or a device
+allocation that fails during the fused attempt, on the same device.
 """
 
 from __future__ import annotations
@@ -70,12 +70,10 @@ def main_run(copt: CountOptions, dopt: DiffOptions, device: torch.device,
     the count stage. timings, when given, receives the wall seconds of the
     fused path's phases ("count", "merge", "total", and with popstrat
     "pca", "null_fit", "alt_fits"); the result dict is main_diff's."""
-    from kmdiff_tpu_torch.cmd.diff import _reject_unported
-
-    _reject_unported(dopt)
     manifest = os.path.join(dopt.output_directory, "options.json")
-    if os.path.exists(manifest) or _run_dir_complete(copt.directory):
-        logger.info("run: resuming through the standard count+diff flow.")
+    if (dopt.model_lib_path or os.path.exists(manifest)
+            or _run_dir_complete(copt.directory)):
+        logger.info("run: using the standard count+diff flow.")
         return _standard_flow(copt, dopt, device)
     try:
         return _main_run_fused(copt, dopt, device, count_files, timings)

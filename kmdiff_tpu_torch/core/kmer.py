@@ -36,6 +36,29 @@ def encode_bases(seq_bytes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return _CODE[seq_bytes], _VALID[seq_bytes]
 
 
+def seq_to_codes(seq: str | bytes) -> tuple[np.ndarray, np.ndarray]:
+    if isinstance(seq, str):
+        seq = seq.encode()
+    arr = np.frombuffer(seq, dtype=np.uint8)
+    return encode_bases(arr)
+
+
+def kmers_from_codes(codes: np.ndarray, valid: np.ndarray, k: int) -> np.ndarray:
+    """All k-length windows of a code sequence packed into uint64 words.
+
+    Returns an array of shape [n_kmers, n_words(k)]; windows containing an
+    invalid base are dropped. For k <= 32 the single word holds the k-mer in
+    its low 2k bits, first base highest.
+    """
+    L = len(codes)
+    if L < k:
+        return np.zeros((0, n_words(k)), dtype=np.uint64)
+    win = np.lib.stride_tricks.sliding_window_view(codes, k)  # [n, k]
+    okwin = np.lib.stride_tricks.sliding_window_view(valid, k).all(axis=1)
+    win = win[okwin].astype(np.uint64)
+    return pack_codes(win, k)
+
+
 def pack_codes(win: np.ndarray, k: int) -> np.ndarray:
     """[n, k] 2-bit codes -> [n, n_words] packed uint64 (first base highest
     within each 32-base word; word 0 holds bases 0..31, word 1 bases 32..63...
@@ -77,8 +100,47 @@ def unpack_codes(packed: np.ndarray, k: int) -> np.ndarray:
     return out
 
 
+def revcomp_packed(packed: np.ndarray, k: int) -> np.ndarray:
+    """Reverse complement of packed k-mers (via unpack; device path uses
+    bit-twiddling — this host version favors clarity)."""
+    codes = unpack_codes(packed, k)
+    rc = (codes[:, ::-1] ^ 2).astype(np.uint64)
+    return pack_codes(rc, k)
+
+
+def canonical_packed(packed: np.ndarray, k: int) -> np.ndarray:
+    """Canonical form: lexicographic min of k-mer and its reverse complement
+    under the A<C<T<G encoded order (kmtricks semantics: comparison happens
+    on the 2-bit-encoded value, not on ACGT alphabetical order)."""
+    rc = revcomp_packed(packed, k)
+    fwd_key = packed
+    # lexicographic compare over words
+    take_rc = np.zeros(len(packed), dtype=bool)
+    undecided = np.ones(len(packed), dtype=bool)
+    for w in range(packed.shape[1]):
+        lt = rc[:, w] < fwd_key[:, w]
+        gt = rc[:, w] > fwd_key[:, w]
+        take_rc |= undecided & lt
+        undecided &= ~(lt | gt)
+    out = np.where(take_rc[:, None], rc, fwd_key)
+    return out
+
+
 def packed_to_strings(packed: np.ndarray, k: int) -> list[str]:
     codes = unpack_codes(packed, k)
     chars = _DECODE[codes]
     return [bytes(row).decode() for row in chars]
 
+
+def string_to_packed(s: str) -> np.ndarray:
+    codes, valid = seq_to_codes(s)
+    if not valid.all():
+        raise ValueError(f"invalid base in k-mer: {s}")
+    return pack_codes(codes.astype(np.uint64)[None, :], len(s))[0]
+
+
+def sort_packed(packed: np.ndarray, *payloads: np.ndarray):
+    """Lexicographic sort of packed k-mers (word 0 major); returns sorted
+    kmers plus payloads gathered in the same order."""
+    order = np.lexsort(tuple(packed[:, w] for w in range(packed.shape[1] - 1, -1, -1)))
+    return (packed[order],) + tuple(p[order] for p in payloads)

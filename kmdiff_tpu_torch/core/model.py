@@ -75,10 +75,19 @@ def chi2_sf1(x):
 
 class IModel:
     """Model interface (reference: include/kmdiff/imodel.hpp). Custom models
-    are not ported yet (ROADMAP.md port queue item 6: plugins); the merge
-    takes PoissonLikelihood. `process` is the scalar per-k-mer ABI
-    kept for plugin parity; `process_block` is the vectorized path the
-    pipeline actually uses."""
+    plug in via kmdiff_tpu_torch.plugins. The pipeline scores a custom
+    model's [B, S] count rows through the first of these ABIs the model
+    has:
+
+      * `process_block_torch(counts, nb_controls)`: counts an int32 tensor
+        of at most pipeline.merge.BLOCK_ROWS rows on the processor's device
+        (u32 counts of 2^31 or more wrap negative); returns (p, sign,
+        mean_control, mean_case) tensors on that device;
+      * `process_block(counts, nb_controls)`: numpy, defined below as a
+        loop over
+      * `process(controls, cases)`: the scalar per-k-mer ABI.
+
+    PoissonLikelihood takes the device merge and K-LRT instead."""
 
     def process(self, controls: np.ndarray, cases: np.ndarray):
         """-> (p_value, Significance, mean_control, mean_case)"""

@@ -1,4 +1,4 @@
-"""Clean-room KFF (k-mer file format) v1.0 writer.
+"""Clean-room KFF (k-mer file format) v1.0 reader/writer.
 
 Implements the public KFF specification (Kmer-File-Format, Dufresne et al.,
 Bioinformatics 2022) for the subset the reference emits with --kff-output
@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import struct
 
+from kmdiff_tpu_torch.utils.exceptions import FormatError
+
 MAGIC = b"KFF"
 #: (ascii >> 1) & 3 codes for A, C, G, T — matches the 2-bit codec in
 #: core.kmer
@@ -32,6 +34,10 @@ ENCODING = (0, 1, 3, 2)
 def _encoding_byte(enc=ENCODING) -> int:
     a, c, g, t = enc
     return (a << 6) | (c << 4) | (g << 2) | t
+
+
+def pack_2bit_strings(seqs: list[str]) -> list[bytes]:
+    return [pack_2bit(s) for s in seqs]
 
 
 def pack_2bit(seq: str) -> bytes:
@@ -56,6 +62,16 @@ def pack_2bit(seq: str) -> bytes:
         out.append(val)
         pos += 4
     return bytes(out)
+
+
+def unpack_2bit(data: bytes, k: int) -> str:
+    nt = "ACTG"  # index by 2-bit code
+    codes = []
+    for byte in data:
+        for shift in (6, 4, 2, 0):
+            codes.append((byte >> shift) & 3)
+    codes = codes[len(codes) - k :] if k % 4 else codes
+    return "".join(nt[c] for c in codes[:k])
 
 
 class KffWriter:
@@ -99,3 +115,58 @@ class KffWriter:
     def __exit__(self, *exc):
         self.close()
 
+
+class KffReader:
+    """Reads back the writer's subset (v + r sections, max=1)."""
+
+    def __init__(self, path: str):
+        self._f = open(path, "rb")
+        if self._f.read(3) != MAGIC:
+            raise FormatError(f"{path}: not a KFF file")
+        self.major, self.minor, enc, self.uniqueness, self.canonicity = self._f.read(5)
+        self.encoding = ((enc >> 6) & 3, (enc >> 4) & 3, (enc >> 2) & 3, enc & 3)
+        (free_size,) = struct.unpack(">I", self._f.read(4))
+        self._f.read(free_size)
+        self.vars: dict[str, int] = {}
+
+    def _read_var_section(self):
+        (n,) = struct.unpack(">Q", self._f.read(8))
+        for _ in range(n):
+            name = bytearray()
+            while (b := self._f.read(1)) not in (b"\x00", b""):
+                name.extend(b)
+            (val,) = struct.unpack(">Q", self._f.read(8))
+            self.vars[name.decode()] = val
+
+    def kmers(self):
+        """Yield k-mer strings from every raw section."""
+        while True:
+            stype = self._f.read(1)
+            if not stype:
+                return
+            if stype == b"v":
+                self._read_var_section()
+            elif stype == b"r":
+                k = self.vars["k"]
+                data_size = self.vars.get("data_size", 0)
+                if self.vars.get("max", 1) != 1:
+                    raise FormatError("reader supports max=1 sections only")
+                (nb,) = struct.unpack(">Q", self._f.read(8))
+                nbytes = (k + 3) // 4
+                for _ in range(nb):
+                    raw = self._f.read(nbytes)
+                    self._f.read(data_size)
+                    yield unpack_2bit(raw, k)
+            elif stype == b"K":  # start of footer magic "KFF"
+                return
+            else:
+                raise FormatError(f"unsupported KFF section {stype!r}")
+
+    def close(self):
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

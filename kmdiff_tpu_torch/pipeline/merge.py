@@ -23,13 +23,19 @@ partition thread pool).
 Either way the small survivor set is rescored in exact f64 on the host
 (core.model), which reproduces kmdiff's p-values.
 
-Not ported yet (NotImplementedError): custom models.
+* Custom models (plugins): no device merge and no K-LRT. Each partition's
+  S streams are union-merged on the host into a dense [U, S] matrix
+  (merge_sorted_streams) that the model scores whole, through the first
+  ABI it has (plugins.block_abi): process_block_torch on int32 tiles of at
+  most BLOCK_ROWS rows on the device, numpy process_block, or the scalar
+  process in a loop. Prebuilt matrices take the same scoring.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import dataclasses
+import functools
 import threading
 import time
 
@@ -40,16 +46,63 @@ from kmdiff_tpu_torch.core.model import IModel, PoissonLikelihood, Significance
 from kmdiff_tpu_torch.io.accumulator import IAccumulator, KmerSignBlock
 from kmdiff_tpu_torch.io.kmtricks import read_kmer_file
 from kmdiff_tpu_torch.pipeline.popstrat import sample_mask
+from kmdiff_tpu_torch.plugins import block_abi
 from kmdiff_tpu_torch.utils.logging import logger
 from kmdiff_tpu_torch.ops.codec import keys_to_words
 from kmdiff_tpu_torch.ops.lrt import LrtParams, run_filter
 
-#: matrix-path tile height
+#: tile height of the matrix path and of process_block_torch
 BLOCK_ROWS = 1 << 17
 
 #: max rows per device merge; larger partitions stream through in
 #: key-range chunks
 MAX_DEVICE_ROWS = 1 << 23
+
+
+def merge_sorted_streams(
+    kmers_list: list[np.ndarray],
+    counts_list: list[np.ndarray],
+) -> tuple[np.ndarray, np.ndarray]:
+    """Union-merge S sorted (kmers, counts) streams into a dense count matrix.
+
+    Replaces the kmtricks KmerMerger heap walk (reference: merge.hpp:265-266
+    with ab_mins=1, recurrence_min=1 — i.e. the plain union) with one
+    vectorized pass:
+
+      concat -> lexsort by packed words -> run-boundary flags -> row ids ->
+      scatter counts into [U, S]
+
+    Returns (kmers [U, n_words] uint64 ascending, counts [U, S] uint32).
+    """
+    S = len(kmers_list)
+    nw = kmers_list[0].shape[1] if kmers_list else 1
+    sizes = [len(k) for k in kmers_list]
+    N = int(np.sum(sizes))
+    if N == 0:
+        return np.zeros((0, nw), dtype=np.uint64), np.zeros((0, S), dtype=np.uint32)
+
+    all_kmers = np.concatenate(kmers_list, axis=0)
+    all_counts = np.concatenate(counts_list, axis=0)
+    sample_idx = np.repeat(np.arange(S, dtype=np.int32), sizes)
+
+    # lexicographic order over words (word 0 major). Views the row bytes as
+    # big-endian so a single void-dtype argsort handles any word count.
+    if all_kmers.shape[1] == 1:
+        order = np.argsort(all_kmers[:, 0], kind="stable")
+    else:
+        keys = np.ascontiguousarray(all_kmers.astype(">u8"))
+        order = np.argsort(keys.view(f"V{nw * 8}").ravel(), kind="stable")
+
+    sk = all_kmers[order]
+    new_row = np.empty(N, dtype=bool)
+    new_row[0] = True
+    np.any(sk[1:] != sk[:-1], axis=1, out=new_row[1:])
+    row_id = np.cumsum(new_row) - 1
+    U = int(row_id[-1]) + 1
+
+    counts = np.zeros((U, S), dtype=np.uint32)
+    counts[row_id, sample_idx[order]] = all_counts[order]
+    return sk[new_row], counts
 
 
 @dataclasses.dataclass
@@ -62,8 +115,9 @@ class PartitionResult:
 
 
 class _Phases(threading.local):
-    """Per-thread stage times (decode / groupsum / build / device), logged
-    at debug level when a partition ends."""
+    """Per-thread stage times (decode / groupsum / build / device; a custom
+    model's decode / union / score), logged at debug level when a partition
+    ends."""
 
     def __init__(self):
         self.t = {}
@@ -78,7 +132,8 @@ class _Phases(threading.local):
 
 class PartitionProcessor:
     """Runs one partition: load -> merge + filter on `device` -> exact
-    rescore -> accumulate (reference observer: merge.hpp:68-103)."""
+    rescore -> accumulate (reference observer: merge.hpp:68-103); a custom
+    model's partition: load -> host union merge -> the model's scores."""
 
     def __init__(self, model: IModel, nb_controls: int, nb_cases: int,
                  threshold: float, device: torch.device,
@@ -86,12 +141,9 @@ class PartitionProcessor:
                  save_matrix_path: str | None = None):
         """keep_counts: survivors carry their count rows (popstrat);
         sampler: a popstrat GenoSampler that receives each partition's
-        sampled geno rows; save_matrix_path: --save-sk's directory."""
-        if not isinstance(model, PoissonLikelihood):
-            raise NotImplementedError(
-                "custom models are not ported to kmdiff_tpu_torch yet "
-                "(ROADMAP.md port queue item 6: plugins)"
-            )
+        sampled geno rows; save_matrix_path: --save-sk's directory. A model
+        other than PoissonLikelihood needs a block ABI (plugins.block_abi:
+        PluginError without one)."""
         self.model = model
         self.nb_controls = nb_controls
         self.nb_cases = nb_cases
@@ -102,22 +154,33 @@ class PartitionProcessor:
         self.save_matrix_path = save_matrix_path
         self.want_rows = keep_counts or save_matrix_path is not None
         self.phases = _Phases()
-        self.params = LrtParams(nb_controls, nb_cases, model.sum_controls,
-                                model.sum_cases, threshold)
-        # the full merge: per-sample streams with sample ids and raw counts,
-        # int64 group sums; no host group pre-sum, no packing
-        self.full = (self.want_rows or sampler is not None
-                     or self.params.wide_sums)
+        if isinstance(model, PoissonLikelihood):
+            self.abi = None
+            self.params = LrtParams(nb_controls, nb_cases, model.sum_controls,
+                                    model.sum_cases, threshold)
+            # the full merge: per-sample streams with sample ids and raw
+            # counts, int64 group sums; no host group pre-sum, no packing
+            self.full = (self.want_rows or sampler is not None
+                         or self.params.wide_sums)
+        else:
+            self.abi = block_abi(model)
+            self.params = None
+            self.full = False
+            self._warned_scalar = False
 
-    # -- block scoring (matrix path) -----------------------------------------
+    # -- block scoring (matrix path, custom models) ---------------------------
 
     def _score_block(self, kmers: np.ndarray, counts: np.ndarray):
-        """Score [B, S] rows through K-LRT in BLOCK_ROWS tiles, rescore the
-        kept rows in f64; returns (survivor KmerSignBlock, survivor row
-        indices, control and case tallies). A wide cohort's rows, whose
+        """Score [B, S] rows; returns (survivor KmerSignBlock, survivor row
+        indices, control and case tallies). Poisson: K-LRT in BLOCK_ROWS
+        tiles, the kept rows rescored in f64; a wide cohort's rows, whose
         group sums may pass int32, take exact int64 sums and f64 p-values
-        on the host, with no device (kmdiff_tpu/pipeline/merge.py:206-215)."""
-        if self.params.wide_sums:
+        on the host, with no device (kmdiff_tpu/pipeline/merge.py:206-215).
+        A custom model scores every row (_plugin_scores)."""
+        if self.params is None:
+            idx = np.arange(len(counts))
+            p, sg, mc, mk = self._plugin_scores(counts)
+        elif self.params.wide_sums:
             idx = np.arange(len(counts))
             s_c = counts[:, : self.nb_controls].sum(axis=1, dtype=np.int64)
             s_k = counts[:, self.nb_controls :].sum(axis=1, dtype=np.int64)
@@ -131,7 +194,8 @@ class PartitionProcessor:
                 keep[lo:hi], s_c[lo:hi], s_k[lo:hi] = k, sc, sk
             idx = np.nonzero(keep)[0]
             s_c, s_k = s_c[idx], s_k[idx]
-        p, sg, mc, mk = self.model.process_sums(s_c, s_k)
+        if self.params is not None:
+            p, sg, mc, mk = self.model.process_sums(s_c, s_k)
         final = p <= self.threshold
         idx = idx[final]
         block = KmerSignBlock(
@@ -144,6 +208,60 @@ class PartitionProcessor:
         )
         n_ctrl = int(np.sum(block.signs == int(Significance.CONTROL)))
         return block, idx, n_ctrl, len(block) - n_ctrl
+
+    def _plugin_scores(self, counts: np.ndarray):
+        """A custom model's (p, sign, mean_control, mean_case) for every row
+        of [B, S] u32 counts, through its ABI (kmdiff_tpu/pipeline/
+        merge.py:243-321)."""
+        if self.abi == "torch":
+            return self._torch_block_scores(counts)
+        if self.abi == "numpy":
+            return self.model.process_block(counts, self.nb_controls)
+        if len(counts) > 1_000_000 and not self._warned_scalar:
+            logger.warning(
+                "custom model %s only implements the scalar process() ABI; "
+                "scoring %d rows via the per-row loop. Implement "
+                "process_block (numpy) or process_block_torch (device) for "
+                "large cohorts.", type(self.model).__name__, len(counts),
+            )
+            self._warned_scalar = True
+        return IModel.process_block(self.model, counts, self.nb_controls)
+
+    def _torch_block_scores(self, counts: np.ndarray):
+        """process_block_torch over int32 tiles of at most BLOCK_ROWS rows
+        (the u32 counts' bit patterns, kmdiff_tpu/pipeline/merge.py:278; the
+        last tile unpadded) on the processor's device. A tile's four outputs
+        are stacked in the JAX package's dtype, result_type(p, mean_control,
+        mean_case, float32), and read back in one copy; the rest is f64 on
+        the host."""
+        B = counts.shape[0]
+        p, mc, mk = np.empty(B), np.empty(B), np.empty(B)
+        sg = np.empty(B, dtype=np.int8)
+        counts_i32 = counts.view(np.int32)
+        for lo in range(0, B, BLOCK_ROWS):
+            hi = min(B, lo + BLOCK_ROWS)
+            tp, tsg, tmc, tmk = self.model.process_block_torch(
+                self._stage(counts_i32[lo:hi]), self.nb_controls)
+            dt = functools.reduce(torch.promote_types,
+                                  (tmc.dtype, tmk.dtype, torch.float32), tp.dtype)
+            out = torch.stack([tp.to(dt), tsg.to(dt), tmc.to(dt),
+                               tmk.to(dt)]).cpu().numpy()
+            p[lo:hi], mc[lo:hi], mk[lo:hi] = out[0], out[2], out[3]
+            sg[lo:hi] = out[1].astype(np.int8)
+        return p, sg, mc, mk
+
+    def _stage(self, rows: np.ndarray) -> torch.Tensor:
+        """One tile's rows on the processor's device. On CUDA they go
+        through page-locked memory from PyTorch's caching host allocator,
+        which hands a block out again only after every copy queued from it
+        has ended, so threads that score partitions at once never overwrite
+        a tile still in flight."""
+        rows = np.ascontiguousarray(rows)
+        if self.device.type != "cuda":
+            return torch.from_numpy(rows)
+        pinned = torch.empty(rows.shape, dtype=torch.int32, pin_memory=True)
+        pinned.numpy()[...] = rows
+        return pinned.to(self.device, non_blocking=True)
 
     def write_matrix_sink(self, partition, sink, kmer_size, S):
         """--save-sk: one partition's survivors' count matrix from its
@@ -192,19 +310,41 @@ class PartitionProcessor:
             kmers_list.append(kmers)
             counts_list.append(counts)
         self.phases.add("decode", time.perf_counter() - t0)
-        res = self._process_device_merge(partition, kmers_list, counts_list,
-                                         acc, ksize)
+        if self.params is None:
+            t0 = time.perf_counter()
+            kmers, counts = merge_sorted_streams(kmers_list, counts_list)
+            self.phases.add("union", time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            res = self.process_arrays(partition, kmers, counts, acc, ksize)
+            self.phases.add("score", time.perf_counter() - t0)
+        else:
+            res = self._process_device_merge(partition, kmers_list,
+                                             counts_list, acc, ksize)
         self._log_phases(partition)
         return res
+
+    def process_arrays(self, partition: int, kmers: np.ndarray,
+                       counts: np.ndarray, acc: IAccumulator,
+                       kmer_size: int = 0) -> PartitionResult:
+        """Score one partition's merged rows (kmers [U, nw], counts [U, S]:
+        merge_sorted_streams' union) as one block."""
+        return self._process_blocks(partition, [(kmers, counts)], acc,
+                                    kmer_size, counts.shape[1])
 
     def process_matrix(self, partition: int, path: str,
                        acc: IAccumulator) -> PartitionResult:
         """Stream a prebuilt count matrix in bounded row blocks (rows are
-        already merged, one distinct k-mer each); sampled geno rows and
-        --save-sk survivors collect across blocks."""
+        already merged, one distinct k-mer each)."""
         from kmdiff_tpu_torch.io.kmtricks import open_matrix_stream
 
         info, blocks = open_matrix_stream(path)
+        return self._process_blocks(partition, blocks, acc, info.kmer_size,
+                                    info.count_slots)
+
+    def _process_blocks(self, partition, blocks, acc, kmer_size: int,
+                        S: int) -> PartitionResult:
+        """Score (kmers, counts) row blocks of merged rows; sampled geno
+        rows and --save-sk survivors collect across blocks."""
         total = nsign = n_ctrl = n_case = 0
         geno_sink, sink = self.new_sinks()
         for kmers, counts in blocks:
@@ -219,8 +359,8 @@ class PartitionProcessor:
             nsign += len(block)
             n_ctrl += nc
             n_case += nk
-        self.flush_sinks(partition, geno_sink, sink if info.kmer_size else None,
-                         info.kmer_size, info.count_slots)
+        self.flush_sinks(partition, geno_sink, sink if kmer_size else None,
+                         kmer_size, S)
         acc.finish()
         return PartitionResult(partition, total, nsign, n_ctrl, n_case)
 

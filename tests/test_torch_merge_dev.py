@@ -142,7 +142,14 @@ def test_processor_rejects_unported_models():
     class Custom(TPoissonLikelihood):
         pass
 
-    with pytest.raises(NotImplementedError, match="plugins"):
+    from kmdiff_tpu_torch.examples.plugins.fold_change_model import FoldChangeModel
+    from kmdiff_tpu_torch.plugins import PluginError
+
+    # a plugin model is accepted (it scores the host union merge, no K-LRT);
+    # a model with no block ABI is refused
+    plugin = tmerge.PartitionProcessor(FoldChangeModel(), 1, 1, 0.1, CPU)
+    assert plugin.abi == "numpy" and plugin.params is None
+    with pytest.raises(PluginError, match="process_block_torch"):
         tmerge.PartitionProcessor(object(), 1, 1, 0.1, CPU)
     # a cohort whose k-mer mass reaches 2^31 is built and merges (the wide
     # sums), as the JAX processor merges it
@@ -163,4 +170,5 @@ def test_processor_rejects_unported_models():
         np.testing.assert_array_equal(got.kmers, want.kmers)
         np.testing.assert_array_equal(got.pvalues, want.pvalues)
     # subclasses of the Poisson model keep the device path
-    assert tmerge.PartitionProcessor(Custom(1, 1, [5], [5]), 1, 1, 0.1, CPU)
+    assert tmerge.PartitionProcessor(Custom(1, 1, [5], [5]), 1, 1, 0.1,
+                                     CPU).params is not None

@@ -3,9 +3,11 @@ that refuses and records every import of `jax`, `jaxlib` or `kmdiff_tpu`
 (the exact top-level name, not `kmdiff_tpu_torch`), kmdiff_tpu_torch
 simulates, counts, diffs and runs (the fused count -> diff) a tiny cohort on
 the CPU, then diffs and runs it again with population-stratification
-correction and --save-sk, and no such import was even attempted (on a
-machine where JAX is installed, an attempt would load it). Neither the
-port's sources nor chip_smoke.py hold an import line of either."""
+correction and --save-sk, diffs it with the port's device plugin
+(process_block_torch), maps the case k-mers with `call` and prints `infos`,
+and no such import was even attempted (on a machine where JAX is installed,
+an attempt would load it). Neither the port's sources (its example plugins
+among them) nor chip_smoke.py hold an import line of either."""
 
 import os
 import pathlib
@@ -67,6 +69,22 @@ _SCRIPT = textwrap.dedent("""
         assert os.path.exists(os.path.join(root, out, "popstrat", "pcs.evec"))
     assert os.listdir(os.path.join(root, "out_p", "positive_kmer_matrix",
                                    "matrices"))
+    plugin = os.path.join(os.path.dirname(sys.argv[2]), "examples", "plugins",
+                          "device_fold_change_model.py")
+    assert main(["diff", "--km-run-dir", os.path.join(root, "run"), "-1", "2",
+                 "-2", "2", "-s", "0.5", "--cutoff", "1", "-c", "disabled",
+                 "--model", plugin, "--pop-correction", "--threads", "1",
+                 "--output-dir", os.path.join(root, "out_m")],
+                device="cpu") == 0
+    case = os.path.join(root, "out_m", "case_kmers.fasta")
+    assert os.path.getsize(case) > 0
+    assert not os.path.exists(os.path.join(root, "out_m", "popstrat"))
+    assert main(["call", "-i", case, "-r",
+                 os.path.join(root, "sim", "case_3.fasta"), "-o",
+                 os.path.join(root, "calls.tsv")], device="cpu") == 0
+    with open(os.path.join(root, "calls.tsv")) as f:
+        assert len(f.read().splitlines()) > 1
+    assert main(["infos"], device="cpu") == 0
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     assert not attempts, attempts
@@ -83,10 +101,12 @@ def test_port_runs_with_jax_blocked(tmp_path):
     env["PYTHONPATH"] = os.pathsep.join(
         [str(PORT.parent), env.get("PYTHONPATH", "")]
     )
-    res = subprocess.run([sys.executable, "-c", _SCRIPT, str(tmp_path)],
+    res = subprocess.run([sys.executable, "-c", _SCRIPT, str(tmp_path),
+                          str(PORT / "__init__.py")],
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
     assert "NOJAX_OK" in res.stdout
+    assert "kmdiff-tpu-torch " in res.stdout  # infos
 
 
 def test_port_sources_never_import_jax():
@@ -96,5 +116,6 @@ def test_port_sources_never_import_jax():
     assert not pattern.search("from kmdiff_tpu_torch import kernels\n")
     sources = [*sorted(PORT.rglob("*.py")), PORT.parent / "chip_smoke.py"]
     assert len(sources) >= 12
+    assert PORT / "examples" / "plugins" / "device_fold_change_model.py" in sources
     for path in sources:
         assert not pattern.search(path.read_text()), path

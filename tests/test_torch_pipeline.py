@@ -127,7 +127,7 @@ def test_diff_matrix_run_dir_matches_jax(cohort, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--num-processes", "2"], ["--model", "x.py"], ["--process-id", "0"],
+    ["--num-processes", "2"], ["--process-id", "0"],
     ["--devices", "2"], ["--profile", "trace"], ["--distributed", "h:1"],
 ])
 def test_unported_diff_flags_raise(cohort, extra, tmp_path):
@@ -138,8 +138,7 @@ def test_unported_diff_flags_raise(cohort, extra, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--profile", "trace"], ["--distributed", "h:1"], ["--model", "x.py"],
-    ["--devices", "2"],
+    ["--profile", "trace"], ["--distributed", "h:1"], ["--devices", "2"],
 ])
 def test_unported_run_flags_raise(cohort, extra, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -158,9 +157,8 @@ def test_unported_commands_and_k_raise(tmp_path):
             with pytest.raises(SystemExit) as e:
                 main(args)
             assert e.value.code == 2
-    for cmd in (["infos"], ["warmup", "-1", "1", "-2", "1"]):
-        with pytest.raises(NotImplementedError):
-            torch_main(cmd, device="cpu")
+    with pytest.raises(NotImplementedError):
+        torch_main(["warmup", "-1", "1", "-2", "1"], device="cpu")
 
 
 def test_cuda_device_without_a_card_raises():

@@ -18,7 +18,10 @@ tests/test_popstrat.py (12 samples, k = 21), against the JAX package.
   count rows, geno sampling and --save-sk.
 """
 
+import json
+import logging
 import os
+import pathlib
 
 import numpy as np
 import pytest
@@ -122,8 +125,9 @@ def test_host_numerics_paths_byte_identical(stratified_cohort, tmp_path, variant
     _same_bytes(ours / "popstrat", ref / "popstrat", ARTIFACTS)
 
 
-def test_cli_flags_reach_the_corrector(stratified_cohort, tmp_path):
-    """The popstrat flags through the port's CLI, --model still refused."""
+def test_cli_flags_reach_the_corrector(stratified_cohort, tmp_path, caplog,
+                                      monkeypatch):
+    """The popstrat flags through the port's CLI; --model drops popstrat."""
     _out, run_dir, nc, nk = stratified_cohort
     files = _cov_gender(stratified_cohort, tmp_path)
     args = ["diff", "--km-run-dir", run_dir, "-1", str(nc), "-2", str(nk),
@@ -140,9 +144,18 @@ def test_cli_flags_reach_the_corrector(stratified_cohort, tmp_path):
     fit = np.load(tmp_path / "t" / "popstrat" / "null_fit.npz")
     assert fit["null_features"].shape == (nc + nk, 1 + 3 + 1 + 1 + 1)
     _close_fasta(tmp_path / "t", tmp_path / "j", min_kmers=1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        torch_main([*args, "--output-dir", str(tmp_path / "m"), "--model",
-                    "x.py"], device="cpu")
+    # a custom model drops popstrat (with a warning), as in the JAX package
+    plugin = str(pathlib.Path(__file__).resolve().parents[1] / "kmdiff_tpu_torch"
+                 / "examples" / "plugins" / "fold_change_model.py")
+    monkeypatch.setattr(logging.getLogger("kmdiff"), "propagate", True)
+    with caplog.at_level(logging.WARNING, logger="kmdiff"):
+        assert torch_main([*args, "--output-dir", str(tmp_path / "m"),
+                           "--model", plugin], device="cpu") == 0
+    assert any("stratification correction disabled" in r.message
+               for r in caplog.records)
+    assert not (tmp_path / "m" / "popstrat").exists()
+    with open(tmp_path / "m" / "options.json") as f:
+        assert json.load(f)["pop_correction"] is False
 
 
 def test_resume_uses_corrected_spills(stratified_cohort, tmp_path):
