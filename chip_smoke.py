@@ -146,6 +146,18 @@ Run from the root of a checkout, with no arguments:
    loose case k-mers against popsim's truth.fasta must map some; `infos`
    on CUDA must name the card. Each step's wall is printed, with the host
    union merge's and the scoring's seconds summed over the partitions.
+9. The multi-process runtime (run_distributed): two ranks of one gloo
+   group (`python -m kmdiff_tpu_torch ... --distributed 127.0.0.1:<free
+   port> --num-processes 2 --process-id R`), both on the first card, over
+   phase 3's cohort at its full size: `count` (its count files, histograms,
+   fof and kmdiff-count.opt byte-identical to phase 3's), the loose `diff`
+   (FASTA byte-identical to phase 3's loose diff), popstrat `diff
+   --save-sk` (FASTA, pcs.evec and matrices byte-identical to phase 5's
+   CUDA diff) and the loose `run` (the standard flow; FASTA byte-identical
+   to phase 3's loose diff). Each rank writes its wall and its launches
+   (KMDIFF_RUN_REPORT); both must exit 0, and each must launch K-EXT,
+   K-RUN, K-CMP and K-LRT over the four commands. Each rank's process wall
+   and command seconds are printed beside the single process's wall.
 
 Then it prints every kernel's launches on each path, and fails if any
 module of JAX or of the JAX package (kmdiff_tpu) was loaded.
@@ -183,7 +195,8 @@ with sample ids as full_*; run_bounds_mw is the count form, beside
 torch.unique_consecutive(dim=0)); int_gram's row is [2^20, 20] with
 device_ms and device_ops, carries [2^18, 200] as s200_* and phase 5's
 row-sum groups as groups_* (ms, plain_ms, bound_ms, bound_by, device_ms,
-device_ops a call, shapes); its library_ms is torch._int_mm;
+device_ops a call, shapes); its library_ms is torch._int_mm; every row
+carries dist_launches, its launches on phase 9 (both ranks, four commands);
 the last line of standard output is the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -1741,7 +1754,8 @@ def check_popstrat_fasta(dev, opt, run_dir, gpu, cpu, alpha) -> str:
 def run_popstrat(dev, phase3) -> tuple:
     """Phase 5: diff (CUDA, then CPU) and run (CUDA) with popstrat and
     --save-sk; returns the launch counts of the CUDA diff and of the run,
-    and the blocks K-GRAM took in the CUDA diff (one a row-sum group)."""
+    the blocks K-GRAM took in the CUDA diff (one a row-sum group), and the
+    walls of the loose diff without popstrat and of the popstrat diffs."""
     import torch
 
     from kmdiff_tpu_torch import kernels
@@ -1758,8 +1772,9 @@ def run_popstrat(dev, phase3) -> tuple:
     main_diff(diff_options(parse_args(
         ["diff", "--km-run-dir", phase3["run"], *loose, "--output-dir",
          os.path.join(WORK, "pop_base")])), dev)
+    walls = {"loose diff": time.perf_counter() - t0}
     print(f"[popstrat base] loose diff without popstrat: "
-          f"{time.perf_counter() - t0:.3f} s wall (CUDA)")
+          f"{walls['loose diff']:.3f} s wall (CUDA)")
     outs, launches = {}, {}
     # K-GRAM's inputs on CUDA, one block a row-sum group (compare_gram_groups)
     groups = []
@@ -1783,6 +1798,7 @@ def run_popstrat(dev, phase3) -> tuple:
         finally:
             pca.int_gram = real_gram
         wall = time.perf_counter() - t0
+        walls[f"popstrat diff {label}"] = wall
         launches[label] = kernels.launch_counts()
         print(f"[popstrat diff {label}] {wall:.3f} s wall (PCA "
               f"{timings['pca']:.3f} s, null fit {timings['null_fit']:.3f} s, "
@@ -1845,7 +1861,7 @@ def run_popstrat(dev, phase3) -> tuple:
     if len(groups) != launches["gpu"]["int_gram"]:
         raise AssertionError(f"popstrat diff: {len(groups)} K-GRAM blocks recorded, "
                              f"{launches['gpu']['int_gram']} launches")
-    return launches["gpu"], run_launches, groups
+    return launches["gpu"], run_launches, groups, walls
 
 
 #: phase 6's wide cohort: a shared pool of ~6 M k-mers, ~2^22 of them a
@@ -2529,6 +2545,130 @@ def run_plugins(dev, phase3) -> dict:
             "run --model": run_l}
 
 
+#: the kernels each rank of phase 9 must launch over its commands (the
+#: count's histograms are host work in count + diff, as in the JAX
+#: package's count: K-HIST runs in the fused `run` only)
+DIST_KERNELS = ("canonical_kmers", "run_bounds", "compact", "lrt_filter")
+
+
+def _same_tree(a: str, b: str, subs) -> int:
+    """Require every file under a/sub equal to b/sub, names and bytes;
+    returns the number of files."""
+    n = 0
+    for sub in subs:
+        names = sorted(os.listdir(os.path.join(b, sub)))
+        if sorted(os.listdir(os.path.join(a, sub))) != names:
+            raise AssertionError(f"phase 9 {sub}: other files than {b}'s")
+        for name in names:
+            if not _same_bytes(os.path.join(a, sub, name),
+                               os.path.join(b, sub, name)):
+                raise AssertionError(f"phase 9 {sub}/{name} differs from {b}'s")
+        n += len(names)
+    return n
+
+
+def _dist_commands(fof: str, world: int) -> tuple[dict, str, dict]:
+    """Phase 9's four command lines for `world` processes, their run
+    directory and their output directories."""
+    loose = ["-1", str(N_CONTROLS), "-2", str(N_CASES), "--threads", "4", "-s",
+             "0.001", "--cutoff", "1", "-c", "disabled"]
+    count = ["--file", fof, "--kmer-size", "31", "--hard-min", "1",
+             "--nb-partitions", "4"]
+    run_dir = os.path.join(WORK, f"dist{world}_run")
+    outs = {name: os.path.join(WORK, f"dist{world}_{name}")
+            for name in ("diff", "popstrat", "run")}
+    return {
+        "count": ["count", *count, "--threads", "4", "--run-dir", run_dir],
+        "diff": ["diff", "--km-run-dir", run_dir, *loose, "--output-dir",
+                 outs["diff"]],
+        "popstrat": ["diff", "--km-run-dir", run_dir, *loose,
+                     "--pop-correction", "--save-sk", "--keep-tmp",
+                     "--output-dir", outs["popstrat"]],
+        "run": ["run", *count, *loose, "--run-dir", f"{run_dir}_of_run",
+                "--output-dir", outs["run"]],
+    }, run_dir, outs
+
+
+def _check_dist_output(label: str, phase3, run_dir: str, outs: dict) -> str:
+    """Hold a phase-9 command's output against phase 3's or phase 5's."""
+    fasta = ("control_kmers.fasta", "case_kmers.fasta")
+    if label == "count":
+        n = _same_tree(run_dir, phase3["run"],
+                       [*(os.path.join("counts", f"partition_{p}")
+                          for p in range(4)), "histograms"])
+        for name in ("kmtricks.fof", "kmdiff-count.opt"):
+            if not _same_bytes(os.path.join(run_dir, name),
+                               os.path.join(phase3["run"], name)):
+                raise AssertionError(f"phase 9 count: {name} differs")
+        return f"{n} count files and histograms byte-identical to phase 3's"
+    if label == "popstrat":
+        pop = os.path.join(WORK, "pop_gpu")
+        for name in (*fasta, os.path.join("popstrat", "pcs.evec")):
+            if not _same_bytes(os.path.join(outs[label], name),
+                               os.path.join(pop, name)):
+                raise AssertionError(f"phase 9 popstrat diff {name} differs "
+                                     "from phase 5's CUDA diff")
+        n = _same_tree(outs[label], pop, [os.path.join(
+            "positive_kmer_matrix", "matrices")])
+        return (f"FASTA, pcs.evec and {n} --save-sk matrices byte-identical to "
+                "phase 5's CUDA diff")
+    for name in fasta:
+        if not _same_bytes(os.path.join(outs[label], name),
+                           os.path.join(WORK, "loose_gpu", name)):
+            raise AssertionError(f"phase 9 {label} {name} differs from phase "
+                                 "3's loose diff")
+    return "FASTA byte-identical to phase 3's loose diff"
+
+
+def run_distributed(phase3, pop_walls) -> dict:
+    """Phase 9: the multi-process runtime, two ranks on one card. Runs
+    `count`, the loose `diff`, popstrat `diff --save-sk` and `run` (loose)
+    over phase 3's cohort, each as one spawned process and then as two
+    --distributed ranks, and holds every output against phases 3 and 5;
+    prints each process's wall, command seconds and log breakdown beside
+    the in-process walls of phases 3 and 5 and its launches, and requires
+    both ranks to launch DIST_KERNELS. Returns the two ranks' launches
+    summed over their commands."""
+    from kmdiff_tpu_torch.tools.dist_walls import log_breakdown, spawn
+
+    def describe(rep: dict) -> str:
+        return (f"{rep['wall']:.3f} s wall, {rep['seconds']:.3f} s in the "
+                f"command {log_breakdown(rep)}")
+
+    in_process = {
+        "count": (phase3["count"], "phase 3's count"),
+        "diff": (pop_walls["loose diff"], "phase 5's loose diff"),
+        "popstrat": (pop_walls["popstrat diff gpu"],
+                     "phase 5's CUDA popstrat diff"),
+        "run": (phase3["count"] + pop_walls["loose diff"],
+                "phase 3's count + phase 5's loose diff"),
+    }
+    plans = {w: _dist_commands(phase3["fof"], w) for w in (1, 2)}
+    per_rank = [dict.fromkeys(phase3["launches"], 0) for _ in range(2)]
+    for label in plans[1][0]:
+        reports = {}
+        for world, (commands, run_dir, outs) in plans.items():
+            reports[world] = spawn(commands[label], world,
+                                   os.path.join(WORK, f"dist_{label}_{world}"))
+            what = _check_dist_output(label, phase3, run_dir, outs)
+        for r, rep in enumerate(reports[2]):
+            for name, n in rep["launches"].items():
+                per_rank[r][name] += n
+        print(f"[distributed {label}] one process"
+              f"{' (the fused run)' if label == 'run' else ''}: "
+              f"{describe(reports[1][0])}; "
+              "two ranks on one card: " + ", ".join(
+                  f"rank {r} {describe(rep)}" for r, rep in enumerate(reports[2]))
+              + f"; in-process ({in_process[label][1]}): "
+              f"{in_process[label][0]:.3f} s; {what} (both); launches (above 0) "
+              + "; ".join(f"rank {r} " + str({k: n for k, n in rep["launches"].items()
+                                              if n})
+                          for r, rep in enumerate(reports[2])))
+    for r, launches in enumerate(per_rank):
+        require_launches(f"distributed rank {r}", launches, DIST_KERNELS)
+    return {f"distributed rank {r}": launches for r, launches in enumerate(per_rank)}
+
+
 def load_native() -> None:
     """Build and load the port's native host-IO library; it must come from
     the checkout's build/kmdiff_tpu_torch/native/."""
@@ -2589,12 +2729,14 @@ def main() -> int:
         timings = compare_kernels(dev)
         phase3 = run_main_path(dev)
         fused_launches = run_fused(dev, phase3)
-        pop_launches, pop_run_launches, gram_groups = run_popstrat(dev, phase3)
+        pop_launches, pop_run_launches, gram_groups, pop_walls = run_popstrat(
+            dev, phase3)
         timings["int_gram"].update(compare_gram_groups(gram_groups))
         del gram_groups
         wide_launches = run_wide(dev, phase3)
         mw_launches = run_multiword(dev, phase3)
         plugin_launches = run_plugins(dev, phase3)
+        dist_launches = run_distributed(phase3, pop_walls)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     paths = {"count+diff": phase3["launches"], "run (a)": fused_launches["a"],
@@ -2602,7 +2744,7 @@ def main() -> int:
              "popstrat run": pop_run_launches, "wide diff": wide_launches["a"],
              "wide popstrat diff": wide_launches["b"],
              "forced-wide run": wide_launches["c"], **mw_launches,
-             **plugin_launches}
+             **plugin_launches, **dist_launches}
     for name in timings:
         print(f"[launches] {name}: " + ", ".join(
             f"{path} {launches[name]}" for path, launches in paths.items()))
@@ -2645,6 +2787,8 @@ def main() -> int:
         if "wide_ms" in timings[name] and name != "abundance_hist":
             # the wide forms' launches on phase 6's wide diff
             rows[-1]["wide_launches"] = wide_launches["a"][name]
+        # phase 9: the launches of both ranks over their four commands
+        rows[-1]["dist_launches"] = sum(d[name] for d in dist_launches.values())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,11 @@
 build_parser has every subcommand, flag, default and dest of the JAX
 package's (kmdiff_tpu/cli.py, after the reference's src/cli.cpp:23-369), so
 a command line runs unchanged on either package. ``count``, ``diff``, ``run``
-(with ``--model`` plugins), ``popsim``, ``call`` and ``infos`` run on the
-port; ``warmup``, and every flag of a path not ported yet, raises
-NotImplementedError naming its item in ROADMAP.md's port queue.
+(with ``--model`` plugins, and over several processes with
+``--distributed``), ``popsim``, ``call`` and ``infos`` run on the port;
+``warmup``, and every flag of a path not ported yet (``--devices`` above 1,
+``--profile``), raises NotImplementedError naming its item in ROADMAP.md's
+port queue.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument(
         "--profile", default="", metavar="DIR",
         help="capture a profiler trace of the run into DIR "
-        "(not ported yet: ROADMAP.md port queue item 9).",
+        "(not ported yet: ROADMAP.md port queue item 10).",
     )
 
 
@@ -302,11 +304,10 @@ def _reject_unported(args) -> None:
             "nothing ahead of time (ROADMAP.md: not to port)"
         )
     if args.devices > 1:
-        raise _unported(f"--devices {args.devices}", "item 7: multi-GPU")
-    if args.distributed or args.num_processes or args.process_id >= 0:
-        raise _unported("--distributed", "item 7: multi-GPU")
+        raise _unported(f"--devices {args.devices}",
+                        "item 7b: the mesh programs")
     if args.profile:
-        raise _unported("--profile", "item 9: the H100 bench and its traces")
+        raise _unported("--profile", "item 10: a torch.profiler trace")
 
 
 def count_options(args):
@@ -381,7 +382,29 @@ def main(argv: list[str] | None = None,
     from kmdiff_tpu_torch.utils.signals import init_signal_handlers
 
     init_signal_handlers()
+    if args.command not in ("count", "diff", "run"):
+        return _dispatch(args, dev)
 
+    from kmdiff_tpu_torch.parallel import distributed
+
+    # --distributed, or KMDIFF_COORDINATOR and friends: every rank runs
+    # this command on its own device (parallel.distributed)
+    distributed.init_distributed(
+        coordinator=args.distributed or None,
+        num_processes=args.num_processes or None,
+        process_id=args.process_id if args.process_id >= 0 else None,
+    )
+    try:
+        rc = _dispatch(args, distributed.rank_device(dev))
+        # every rank leaves the command together: no rank starts a next
+        # command while the primary still writes this one's output
+        distributed.barrier("command_done")
+        return rc
+    finally:
+        distributed.shutdown()
+
+
+def _dispatch(args, dev: torch.device) -> int:
     if args.command == "infos":
         from kmdiff_tpu_torch.cmd.infos import main_infos
 

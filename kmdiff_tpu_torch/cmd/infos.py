@@ -41,9 +41,10 @@ def main_infos(device: torch.device) -> str:
         "",
         "features   : count, diff, run (k 8-128), popstrat, --save-sk,",
         "             model plugins (process_block_torch, process_block,",
-        "             process), call, popsim, FASTA + KFF output, resume",
-        "not ported : multi-GPU (--devices > 1, --distributed: raise, ROADMAP",
-        "             port queue item 7), --profile (raises, item 9),",
+        "             process), call, popsim, FASTA + KFF output, resume,",
+        "             --distributed (ranks of a gloo process group)",
+        "not ported : --devices > 1 (raises, ROADMAP port queue item 7b:",
+        "             the mesh programs), --profile (raises, item 10),",
         "             KMDIFF_GROUP_MERGE (item 1: run ignores it)",
     ]
     return "\n".join(lines)

@@ -15,8 +15,10 @@ are let go, and popstrat corrects the hits (pipeline.popstrat) before the
 output. A cohort whose k-mer mass reaches 2^31 takes the full merge too,
 for its int64 group sums.
 
-Custom models (--model) and resumes (an existing options.json, or a run
-directory with every count file) take the standard count + diff flow, and
+Custom models (--model), the multi-process runtime (--distributed: each
+rank takes its share of count and diff) and resumes (an existing
+options.json, or a run directory with every count file) take the standard
+count + diff flow, and
 so does a cohort the fused path cannot serve (FusedFallback) or a device
 allocation that fails during the fused attempt, on the same device.
 """
@@ -32,6 +34,11 @@ import time
 import torch
 
 from kmdiff_tpu_torch.cmd.options import CountOptions, DiffOptions, dump_options
+from kmdiff_tpu_torch.parallel.distributed import (
+    from_primary,
+    is_distributed,
+    is_primary,
+)
 from kmdiff_tpu_torch.utils.logging import logger
 from kmdiff_tpu_torch.utils.timer import Timer
 from kmdiff_tpu_torch.pipeline.fused import FusedFallback
@@ -58,7 +65,9 @@ def _standard_flow(copt: CountOptions, dopt: DiffOptions,
     from kmdiff_tpu_torch.cmd.count import main_count
     from kmdiff_tpu_torch.cmd.diff import main_diff
 
-    if not _run_dir_complete(copt.directory):
+    # the primary probes the run directory before any rank writes to it
+    if not from_primary(_run_dir_complete(copt.directory) if is_primary()
+                        else None):
         main_count(copt, device)
     return main_diff(dopt, device)
 
@@ -71,7 +80,7 @@ def main_run(copt: CountOptions, dopt: DiffOptions, device: torch.device,
     fused path's phases ("count", "merge", "total", and with popstrat
     "pca", "null_fit", "alt_fits"); the result dict is main_diff's."""
     manifest = os.path.join(dopt.output_directory, "options.json")
-    if (dopt.model_lib_path or os.path.exists(manifest)
+    if (is_distributed() or dopt.model_lib_path or os.path.exists(manifest)
             or _run_dir_complete(copt.directory)):
         logger.info("run: using the standard count+diff flow.")
         return _standard_flow(copt, dopt, device)

@@ -34,6 +34,7 @@ from kmdiff_tpu_torch.io.kmtricks import (
     write_hist,
     write_kmer_file,
 )
+from kmdiff_tpu_torch.parallel.distributed import barrier, is_primary, owned_samples
 from kmdiff_tpu_torch.utils.exceptions import InputError
 from kmdiff_tpu_torch.utils.logging import logger
 from kmdiff_tpu_torch.core.kmer import n_words
@@ -199,7 +200,12 @@ def write_sample_count_files(
 def run_count(opt: CountOptions, device: torch.device) -> None:
     """Build the run directory (reference: kmtricks pipeline ... --until
     count --hist). As in the reference's count stage, --recurrence-min is
-    accepted but not applied."""
+    accepted but not applied.
+
+    Under the multi-process runtime (parallel.distributed) each rank counts
+    its round-robin share of the samples into the shared run directory,
+    the primary copies the fof, and every rank waits for the others
+    (barrier "count_done") before it returns."""
     fof = Fof.parse(opt.fof)
     if not fof.entries:
         raise InputError(f"{opt.fof}: empty fof")
@@ -212,7 +218,8 @@ def run_count(opt: CountOptions, device: torch.device) -> None:
         os.makedirs(
             os.path.join(run_dir, "counts", f"partition_{p}"), exist_ok=True
         )
-    shutil.copyfile(opt.fof, os.path.join(run_dir, "kmtricks.fof"))
+    if is_primary():
+        shutil.copyfile(opt.fof, os.path.join(run_dir, "kmtricks.fof"))
 
     def one_sample(i: int) -> int:
         entry = fof.entries[i]
@@ -253,9 +260,11 @@ def run_count(opt: CountOptions, device: torch.device) -> None:
 
     # samples on host threads: file parsing and spills overlap, the
     # device work queues on one stream
+    mine = owned_samples(len(fof.entries))
     with cf.ThreadPoolExecutor(max(1, opt.nb_threads)) as pool:
-        list(pool.map(one_sample, range(len(fof.entries))))
+        list(pool.map(one_sample, mine))
+    barrier("count_done")
     logger.info(
-        "Counted %d samples, %d partitions, k=%d.",
-        len(fof.entries), nb_partitions, opt.kmer_size,
+        "Counted %d/%d samples, %d partitions, k=%d.",
+        len(mine), len(fof.entries), nb_partitions, opt.kmer_size,
     )

@@ -572,19 +572,25 @@ class GlobalMerge:
         self.results = results  # type: ignore[assignment]
         return self.results
 
-    def merge_partitions(self, partition_paths: list[list[str]]) -> int:
+    def merge_partitions(self, partition_paths: list[list[str]],
+                         only: list[int] | None = None) -> int:
+        """Merge every partition, or the `only` ones (a rank's share under
+        the multi-process runtime); results and counters cover those."""
+        sel = range(len(partition_paths)) if only is None else only
         self._run([
             (lambda p=p: self.processor.process_files(
                 p, partition_paths[p], self.accs[p]))
-            for p in range(len(partition_paths))
+            for p in sel
         ])
         return self.total_kmers()
 
-    def merge_matrices(self, matrix_paths: list[str]) -> int:
+    def merge_matrices(self, matrix_paths: list[str],
+                       only: list[int] | None = None) -> int:
+        sel = range(len(matrix_paths)) if only is None else only
         self._run([
             (lambda p=p: self.processor.process_matrix(
                 p, matrix_paths[p], self.accs[p]))
-            for p in range(len(matrix_paths))
+            for p in sel
         ])
         return self.total_kmers()
 

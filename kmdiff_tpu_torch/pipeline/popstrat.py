@@ -125,6 +125,26 @@ class GenoSampler:
                 g.write("\t".join("1" if v else "0" for v in row) + "\t\n")
                 s.write(f"{i}\t1\t0.0\t0\n")
 
+    # multi-process protocol: every rank saves its partitions' sampled rows;
+    # after the merge barrier the primary joins them in partition order, so
+    # the .geno is a single process's
+
+    def close_parts(self) -> None:
+        for p, rows in self._rows.items():
+            np.save(os.path.join(self.pop_dir, f"geno_part_{p}.npy"), rows)
+
+    @staticmethod
+    def assemble_parts(pop_dir: str, nb_partitions: int,
+                       nb_samples: int) -> np.ndarray:
+        sampler = GenoSampler(pop_dir, 0.0, 0, nb_samples)
+        for p in range(nb_partitions):
+            path = os.path.join(pop_dir, f"geno_part_{p}.npy")
+            if os.path.exists(path):
+                sampler.add_sampled(p, np.load(path))
+                os.remove(path)
+        sampler.close()
+        return sampler.geno
+
 
 def write_parfile(path: str) -> None:
     """Parity artifact (reference: popstrat.hpp:28-37, popstrat.cpp:9-15)."""

@@ -6,9 +6,12 @@ the CPU, then diffs and runs it again with population-stratification
 correction and --save-sk, diffs it with the port's device plugin
 (process_block_torch), maps the case k-mers with `call` and prints `infos`,
 and no such import was even attempted (on a machine where JAX is installed,
-an attempt would load it). Neither the port's sources (its example plugins
-among them) nor chip_smoke.py hold an import line of either."""
+an attempt would load it). The same holds for each rank of a two-rank
+`--distributed` count and popstrat diff (parallel/). Neither the port's
+sources (its example plugins and parallel/ among them) nor chip_smoke.py
+hold an import line of either."""
 
+import json
 import os
 import pathlib
 import re
@@ -18,7 +21,7 @@ import textwrap
 
 PORT = pathlib.Path(__file__).resolve().parents[1] / "kmdiff_tpu_torch"
 
-_SCRIPT = textwrap.dedent("""
+_BLOCK = textwrap.dedent("""
     import importlib.abc
     import os
     import sys
@@ -35,7 +38,9 @@ _SCRIPT = textwrap.dedent("""
             return None
 
     sys.meta_path.insert(0, BlockJax())
+""")
 
+_SCRIPT = _BLOCK + textwrap.dedent("""
     from kmdiff_tpu_torch.cli import main
 
     root = sys.argv[1]
@@ -92,6 +97,41 @@ _SCRIPT = textwrap.dedent("""
 """)
 
 
+_RANK_SCRIPT = _BLOCK + textwrap.dedent("""
+    import json
+
+    from kmdiff_tpu_torch.cli import main
+
+    for argv, port in json.loads(sys.argv[1]):
+        os.environ["KMDIFF_COORDINATOR"] = f"127.0.0.1:{port}"
+        assert main(argv, device="cpu") == 0, argv
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    assert not attempts, attempts
+    assert "kmdiff_tpu_torch.parallel.distributed" in sys.modules
+    print("RANK_OK", flush=True)
+""")
+
+
+def test_distributed_ranks_run_with_jax_blocked(tmp_path):
+    from kmdiff_tpu_torch.cli import main as torch_main
+    from test_torch_distributed import run_ranks
+
+    sim, run, out = tmp_path / "sim", tmp_path / "run", tmp_path / "out"
+    assert torch_main(["popsim", "-o", str(sim), "--genome-len", "4000", "-1",
+                       "2", "-2", "2", "--random-seed", "1"], device="cpu") == 0
+    commands = [
+        ["count", "--file", str(sim / "fof.txt"), "--run-dir", str(run),
+         "--kmer-size", "21", "--threads", "1"],
+        ["diff", "--km-run-dir", str(run), "-1", "2", "-2", "2", "-s", "0.5",
+         "--cutoff", "1", "--pop-correction", "--kmer-pca", "0.05",
+         "--threads", "1", "--output-dir", str(out)],
+    ]
+    run_ranks(_RANK_SCRIPT, commands, tmp_path / "logs")
+    assert (out / "popstrat" / "pcs.evec").exists()
+    assert (out / "case_kmers.fasta").exists()
+
+
 def test_port_runs_with_jax_blocked(tmp_path):
     env = dict(os.environ)
     # without these, kmdiff_tpu/__init__ would import JAX for its
@@ -117,5 +157,6 @@ def test_port_sources_never_import_jax():
     sources = [*sorted(PORT.rglob("*.py")), PORT.parent / "chip_smoke.py"]
     assert len(sources) >= 12
     assert PORT / "examples" / "plugins" / "device_fold_change_model.py" in sources
+    assert PORT / "parallel" / "distributed.py" in sources
     for path in sources:
         assert not pattern.search(path.read_text()), path

@@ -126,9 +126,13 @@ def test_diff_matrix_run_dir_matches_jax(cohort, tmp_path):
         assert want
 
 
+# --distributed runs (tests/test_torch_distributed.py); with an unported
+# flag beside it the command raises before any process group is opened
 @pytest.mark.parametrize("extra", [
-    ["--num-processes", "2"], ["--process-id", "0"],
-    ["--devices", "2"], ["--profile", "trace"], ["--distributed", "h:1"],
+    ["--devices", "2", "--num-processes", "2"],
+    ["--profile", "trace", "--process-id", "0"],
+    ["--devices", "2"], ["--profile", "trace"],
+    ["--distributed", "h:1", "--devices", "2"],
 ])
 def test_unported_diff_flags_raise(cohort, extra, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -138,7 +142,8 @@ def test_unported_diff_flags_raise(cohort, extra, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--profile", "trace"], ["--distributed", "h:1"], ["--devices", "2"],
+    ["--profile", "trace"], ["--distributed", "h:1", "--profile", "trace"],
+    ["--devices", "2"],
 ])
 def test_unported_run_flags_raise(cohort, extra, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
