@@ -6,9 +6,9 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds the port's eleven CUDA kernels from csrc/ with nvcc
-   (one nvcc a source, all at once), printing K-EXT's and K-GRAM's
-   registers, spills and shared memory (-Xptxas -v); builds and loads the port's native host-IO
+   versions, and builds the port's twelve CUDA kernels from csrc/ with nvcc
+   (one nvcc a source, all at once), printing K-EXT's, K-GRAM's and
+   K-PART's registers, spills and shared memory (-Xptxas -v); builds and loads the port's native host-IO
    library (native/), which must come from build/kmdiff_tpu_torch/native/.
 2. Holds each kernel against its plain PyTorch twin on the card at the
    main path's shapes and prints both median times (CUDA events), each
@@ -62,6 +62,11 @@ Run from the root of a checkout, with no arguments:
    streams (p16, and raw counts with sample ids), K-GENO on 2^23 two-word
    keys as a view of a wider buffer, each with its device time (20 queued
    launches; K-RUN's from torch.profiler, as its call waits for its count).
+   K-PART (partition_targets, the mesh count's bucketing) on 2^24
+   one-word keys (k = 31) and 2^23 two-word keys (k = 63), and at phase
+   10's per-call shapes (a bench sample's windows over D shards, k = 31 and
+   63), every 151st a sentinel row, 4 partitions, D = 2 and 4, equal to its
+   twin, with its device time (20 queued launches).
    Also plan_key_chunks (the fused merge's chunk plan, plain torch) on
    phase 4's plan shape, 20 streams of 4,700,000 keys, timed as a whole
    call beside its bytes bound. Integers, masks and
@@ -158,6 +163,21 @@ Run from the root of a checkout, with no arguments:
    (KMDIFF_RUN_REPORT); both must exit 0, and each must launch K-EXT,
    K-RUN, K-CMP and K-LRT over the four commands. Each rank's process wall
    and command seconds are printed beside the single process's wall.
+10. The mesh runtime (run_mesh) on phase 3's cohort at its full size:
+   `count` (k = 31), the loose `diff`, popstrat `diff --save-sk`, the fused
+   loose `run` (through cmd.run.main_run, which must take the fused path;
+   on two shards, two chunks a dispatch) and `count` at k = 63, first with
+   --devices 1 (each output byte-identical to phase 3's, 5's or 7's), then
+   with --devices 2 on a virtual mesh of two shards on the first card
+   (parallel.runtime.set_virtual), each output byte-identical to the
+   one-shard run's, and, on a machine with two cards or more, with
+   --devices min(4, cards) on real cards, which must launch K-EXT (both
+   forms), K-PART and K-GRAM on every card. Each command must launch its
+   kernels (MESH_KERNELS; K-PART only on a mesh); each wall is printed
+   beside the one-shard wall. Two shards on one card measure the overhead
+   of sharding, not a speedup. Phases 3-9 give their count, diff and run
+   commands --devices 1 (ONE_SHARD; the CLI's default, 0, takes every
+   card), so phase 10 alone runs a mesh on any machine.
 
 Then it prints every kernel's launches on each path, and fails if any
 module of JAX or of the JAX package (kmdiff_tpu) was loaded.
@@ -196,7 +216,11 @@ torch.unique_consecutive(dim=0)); int_gram's row is [2^20, 20] with
 device_ms and device_ops, carries [2^18, 200] as s200_* and phase 5's
 row-sum groups as groups_* (ms, plain_ms, bound_ms, bound_by, device_ms,
 device_ops a call, shapes); its library_ms is torch._int_mm; every row
-carries dist_launches, its launches on phase 9 (both ranks, four commands);
+carries dist_launches, its launches on phase 9 (both ranks, four commands),
+and mesh_launches, its launches on phase 10's two virtual shards (five
+commands); partition_ids' row (K-PART) is its one-word D = 2 form, with
+device_ms and its other shapes under "shapes", and its launches are phase
+10's (it runs on the mesh path only);
 the last line of standard output is the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -504,6 +528,7 @@ def compare_kernels(dev) -> dict:
     out["run_bounds_mw"] = compare_runs_mw(dev, rng)
     out["assemble_chunk_mw"] = compare_assemble_mw(dev)
     out["geno_sample_mw"] = compare_geno_mw(dev, rng)
+    out["partition_ids"] = compare_partition(dev, rng)
     return out
 
 
@@ -915,6 +940,57 @@ def compare_ext(dev, rng):
               f"it over the device time; library: none (no one call)")
         res[n, k] = r
     return res[1 << 24, 31]
+
+
+def compare_partition(dev, rng):
+    """K-PART (codec.partition_targets) at the mesh count's shapes: 2^24
+    one-word keys (k = 31) and 2^23 two-word keys (k = 63), and phase 10's
+    own calls, a bench sample's SAMPLE_CODES - k + 1 windows over D shards
+    (k = 31 and 63), every 151st a sentinel row (a read separator's
+    window), 4 partitions, D = 2 and 4: targets and counts equal to the
+    twin's, whole calls and device time against the bound. Returns the
+    one-word 2^24-key D = 2 row, the others under "shapes" (phase 10's as
+    "nw=..,D=..,phase10")."""
+    import numpy as np
+    import torch
+
+    from kmdiff_tpu_torch.ops import codec
+
+    res = {}
+    cases = [(1, 1 << 24, (2, 4), ""), (2, 1 << 23, (2, 4), "")]
+    # phase 10: one round of a sample's windows, ceil(W / D) rows a shard
+    cases += [(nw, -(-(SAMPLE_CODES - k + 1) // D), (D,), ",phase10")
+              for nw, k in ((1, 31), (2, 63)) for D in (2, 4)]
+    for nw, n, Ds, tag in cases:
+        words = rng.integers(0, 2**63, (n, nw), dtype=np.uint64) * np.uint64(2)
+        words[::151] = np.uint64(0xFFFFFFFFFFFFFFFF)
+        keys = torch.from_numpy(codec.words_to_keys(words)).to(dev)
+        del words
+        for D in Ds:
+            t, c = codec.partition_targets(keys, 4, D)
+            tp, cp = codec.partition_targets_plain(keys, 4, D)
+            check_equal(f"partition_targets nw={nw} D={D} targets", t, tp)
+            check_equal(f"partition_targets nw={nw} D={D} counts", c, cp)
+            ms = median_ms(lambda: codec.partition_targets(keys, 4, D))
+            dev_ms = events_ms(lambda: codec.partition_targets(keys, 4, D))
+            plain = median_ms(lambda: codec.partition_targets_plain(keys, 4, D),
+                              reps=5, warmup=1)
+            # 8 nw bytes in and 4 out a row, the D + 1 counts out; ~20
+            # int32 operations a word (two fmix32 rounds and the split) and 4
+            # a row (two remainders counted as one each, the sentinel test,
+            # the count)
+            r = row(ms, plain, 0.0, n * (8 * nw + 4) + 8 * (D + 1),
+                    (20 * nw + 4) * n, device_ms=dev_ms)
+            print(f"[K-PART] partition_targets {n} keys of {nw} word(s), 4 "
+                  f"partitions, D={D}{' (phase 10: a shard of a sample)' if tag else ''} "
+                  f"(counts {c.tolist()}): kernel {ms:.4f} ms "
+                  f"(device {dev_ms:.4f} ms over 20 queued launches), plain "
+                  f"{plain:.4f} ms; {share(r)}, {r['bound_ms'] / dev_ms:.1%} of "
+                  "it over the device time; library: none (no one call)")
+            res[f"nw={nw},D={D}{tag}"] = r
+        del keys
+    first = res.pop("nw=1,D=2")
+    return {**first, "shapes": res}
 
 
 def compare_geno(dev, rng):
@@ -1465,7 +1541,31 @@ def _read_fasta(path):
     return [(lines[i][1:], lines[i + 1]) for i in range(0, len(lines) - 1, 2)]
 
 
-def _diff_cpu_vs_gpu(main, dev, args, label, alpha, k=31):
+#: phases 3-9 drive the single-device main path: the CLI's --devices
+#: defaults to every card of the machine, so their count, diff and run
+#: commands take --devices 1, and phase 10 alone runs a mesh
+ONE_SHARD = ("--devices", "1")
+
+
+def cli_main(argv: list, device) -> int:
+    """The port's CLI, one shard for count, diff and run (ONE_SHARD)."""
+    from kmdiff_tpu_torch.cli import main
+
+    return main(_one_shard(argv), device=device)
+
+
+def cli_args(argv: list):
+    """The port's CLI arguments, one shard for count, diff and run."""
+    from kmdiff_tpu_torch.cli import parse_args
+
+    return parse_args(_one_shard(argv))
+
+
+def _one_shard(argv: list) -> list:
+    return [*argv, *ONE_SHARD] if argv[0] in ("count", "diff", "run") else argv
+
+
+def _diff_cpu_vs_gpu(dev, args, label, alpha, k=31):
     """Run `diff` with args on the CPU (and on `dev` unless out_gpu of this
     label exists); require byte-identical FASTA of k-mers with p < alpha.
     Returns (k-mers tested, {group: significant k-mers})."""
@@ -1473,7 +1573,7 @@ def _diff_cpu_vs_gpu(main, dev, args, label, alpha, k=31):
     for name, where in (("gpu", dev), ("cpu", "cpu")):
         out = os.path.join(WORK, f"{label}_{name}")
         if not os.path.exists(out):
-            main([*args, "--output-dir", out], device=where)
+            cli_main([*args, "--output-dir", out], device=where)
         outs[name] = out
     tested = []
     for out in outs.values():
@@ -1497,32 +1597,37 @@ def _diff_cpu_vs_gpu(main, dev, args, label, alpha, k=31):
     return tested[0], n_sig
 
 
-def run_main_path(dev) -> dict:
-    """Phase 3: popsim -> count -> diff on CUDA, then the CPU reruns."""
-    from kmdiff_tpu_torch import kernels
-    from kmdiff_tpu_torch.cli import main
+def simulate_cohort(dev) -> str:
+    """popsim of the bench cohort into WORK/sim; returns its fof."""
 
     sim = os.path.join(WORK, "sim")
     t0 = time.perf_counter()
-    main(["popsim", "-o", sim, "--genome-len", str(GENOME), "-1",
+    cli_main(["popsim", "-o", sim, "--genome-len", str(GENOME), "-1",
           str(N_CONTROLS), "-2", str(N_CASES), "--read-size", "150",
           "--coverage", "1", "--error-rate", "0.001", "--random-seed", "7"],
          device=dev)
     print(f"[cohort] {N_CONTROLS}+{N_CASES} samples x {GENOME} bp, 150 bp "
           f"reads, coverage 1 (simulated in {time.perf_counter() - t0:.1f} s)")
-    fof = os.path.join(sim, "fof.txt")
+    return os.path.join(sim, "fof.txt")
+
+
+def run_main_path(dev) -> dict:
+    """Phase 3: popsim -> count -> diff on CUDA, then the CPU reruns."""
+    from kmdiff_tpu_torch import kernels
+
+    fof = simulate_cohort(dev)
     run = os.path.join(WORK, "run")
     count_args = ["count", "--file", fof, "--kmer-size", "31", "--hard-min",
                   "1", "--nb-partitions", "4", "--threads", "4"]
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    main([*count_args, "--run-dir", run], device=dev)
+    cli_main([*count_args, "--run-dir", run], device=dev)
     t_count = time.perf_counter() - t0
     t0 = time.perf_counter()
     diff_args = ["diff", "--km-run-dir", run, "-1", str(N_CONTROLS), "-2",
                  str(N_CASES), "--threads", "4"]
-    main([*diff_args, "--output-dir", os.path.join(WORK, "defaults_gpu")],
+    cli_main([*diff_args, "--output-dir", os.path.join(WORK, "defaults_gpu")],
          device=dev)
     t_diff = time.perf_counter() - t0
     launches = kernels.launch_counts()
@@ -1531,7 +1636,7 @@ def run_main_path(dev) -> dict:
     require_launches("count + diff", launches, COUNT_DIFF_KERNELS)
 
     t0 = time.perf_counter()
-    tested, n_sig = _diff_cpu_vs_gpu(main, dev, diff_args, "defaults", 0.05)
+    tested, n_sig = _diff_cpu_vs_gpu(dev, diff_args, "defaults", 0.05)
     print(f"[main path] {tested} k-mers tested, significant {n_sig}; "
           f"CPU+CUDA rerun {time.perf_counter() - t0:.3f} s, FASTA "
           f"byte-identical")
@@ -1540,7 +1645,7 @@ def run_main_path(dev) -> dict:
     # survivor sets on the same run dir
     loose = [*diff_args, "-s", "0.001", "--cutoff", "1", "-c", "disabled"]
     t0 = time.perf_counter()
-    _tested, n_loose = _diff_cpu_vs_gpu(main, dev, loose, "loose", 0.001)
+    _tested, n_loose = _diff_cpu_vs_gpu(dev, loose, "loose", 0.001)
     if not n_loose["case"] or not n_loose["control"]:
         raise AssertionError(f"no k-mer passed p < 0.001: {n_loose}")
     print(f"[check] diff -s 0.001 --cutoff 1 -c disabled: {n_loose} "
@@ -1556,7 +1661,7 @@ def run_main_path(dev) -> dict:
     sid = first.split(":")[0].strip()
     run0 = os.path.join(WORK, "run_cpu0")
     t0 = time.perf_counter()
-    main([*count_args[:2], fof0, *count_args[3:], "--run-dir", run0],
+    cli_main([*count_args[:2], fof0, *count_args[3:], "--run-dir", run0],
          device="cpu")
     t_cpu0 = time.perf_counter() - t0
     rels = [os.path.join("histograms", f"{sid}.hist")] + [
@@ -1595,7 +1700,7 @@ def run_fused(dev, phase3) -> dict:
     options the CLI builds; (a) the defaults, (b) the loose cut with
     two-chunk samples. Returns each run's launch counts."""
     from kmdiff_tpu_torch import kernels
-    from kmdiff_tpu_torch.cli import count_options, diff_options, parse_args
+    from kmdiff_tpu_torch.cli import count_options, diff_options
     from kmdiff_tpu_torch.cmd.run import main_run
     from kmdiff_tpu_torch.pipeline import count as count_mod
 
@@ -1612,7 +1717,7 @@ def run_fused(dev, phase3) -> dict:
     for label, (extra, ref, needed, rows) in cases.items():
         run_dir = os.path.join(WORK, f"fused_run_{label}")
         out_dir = os.path.join(WORK, f"fused_out_{label}")
-        args = parse_args([*base, *extra, "--run-dir", run_dir,
+        args = cli_args([*base, *extra, "--run-dir", run_dir,
                            "--output-dir", out_dir])
         timings = {}
         if rows:
@@ -1759,7 +1864,7 @@ def run_popstrat(dev, phase3) -> tuple:
     import torch
 
     from kmdiff_tpu_torch import kernels
-    from kmdiff_tpu_torch.cli import count_options, diff_options, parse_args
+    from kmdiff_tpu_torch.cli import count_options, diff_options
     from kmdiff_tpu_torch.cmd.diff import main_diff
     from kmdiff_tpu_torch.cmd.run import main_run
     from kmdiff_tpu_torch.ops import pca
@@ -1769,7 +1874,7 @@ def run_popstrat(dev, phase3) -> tuple:
     flags = [*loose, "--pop-correction", "--save-sk", "--keep-tmp"]
     # the same diff without popstrat, in this call, as the reference wall
     t0 = time.perf_counter()
-    main_diff(diff_options(parse_args(
+    main_diff(diff_options(cli_args(
         ["diff", "--km-run-dir", phase3["run"], *loose, "--output-dir",
          os.path.join(WORK, "pop_base")])), dev)
     walls = {"loose diff": time.perf_counter() - t0}
@@ -1787,7 +1892,7 @@ def run_popstrat(dev, phase3) -> tuple:
 
     for label, where in (("gpu", dev), ("cpu", torch.device("cpu"))):
         out = os.path.join(WORK, f"pop_{label}")
-        args = parse_args(["diff", "--km-run-dir", phase3["run"], *flags,
+        args = cli_args(["diff", "--km-run-dir", phase3["run"], *flags,
                            "--output-dir", out])
         timings = {}
         kernels.reset_launch_counts()
@@ -1830,7 +1935,7 @@ def run_popstrat(dev, phase3) -> tuple:
 
     run_dir = os.path.join(WORK, "pop_run")
     out = os.path.join(WORK, "pop_run_out")
-    args = parse_args(["run", "--file", phase3["fof"], "--kmer-size", "31",
+    args = cli_args(["run", "--file", phase3["fof"], "--kmer-size", "31",
                        "--hard-min", "1", "--nb-partitions", "4", *flags,
                        "--run-dir", run_dir, "--output-dir", out])
     timings = {}
@@ -2041,7 +2146,7 @@ def run_wide(dev, phase3) -> dict:
     import torch
 
     from kmdiff_tpu_torch import kernels
-    from kmdiff_tpu_torch.cli import count_options, diff_options, main, parse_args
+    from kmdiff_tpu_torch.cli import count_options, diff_options
     from kmdiff_tpu_torch.cmd.diff import main_diff
     from kmdiff_tpu_torch.cmd.run import main_run
     from kmdiff_tpu_torch.io.kmtricks import open_matrix_stream
@@ -2068,7 +2173,7 @@ def run_wide(dev, phase3) -> dict:
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         with FormSpy() as spy:
-            main(["diff", "--km-run-dir", run_dir, *loose, "--output-dir", out[label]],
+            cli_main(["diff", "--km-run-dir", run_dir, *loose, "--output-dir", out[label]],
                  device=where)
         wall = time.perf_counter() - t0
         if where is dev:
@@ -2097,7 +2202,7 @@ def run_wide(dev, phase3) -> dict:
     for where in (dev, "cpu"):
         label = "pop_gpu" if where is dev else "pop_cpu"
         out[label] = os.path.join(WORK, f"wide_{label}")
-        args = parse_args(["diff", "--km-run-dir", run_dir, *flags, "--output-dir",
+        args = cli_args(["diff", "--km-run-dir", run_dir, *flags, "--output-dir",
                            out[label]])
         timings = {}
         kernels.reset_launch_counts()
@@ -2154,7 +2259,7 @@ def run_wide(dev, phase3) -> dict:
             self.wide_sums = True
 
     run_out = os.path.join(WORK, "wide_forced_run_out")
-    args = parse_args(["run", "--file", phase3["fof"], "--kmer-size", "31", "--hard-min",
+    args = cli_args(["run", "--file", phase3["fof"], "--kmer-size", "31", "--hard-min",
                        "1", "--nb-partitions", "4", *loose, "--run-dir",
                        os.path.join(WORK, "wide_forced_run"), "--output-dir", run_out])
     timings = {}
@@ -2205,7 +2310,6 @@ def _count_diff_at(dev, fof, k: int) -> dict:
     which must keep k-mers of both groups), then the CPU reruns of both
     diffs and the recount of sample 0: byte-identical."""
     from kmdiff_tpu_torch import kernels
-    from kmdiff_tpu_torch.cli import main
 
     run = os.path.join(WORK, f"run_k{k}")
     count_args = ["count", "--file", fof, "--kmer-size", str(k), "--hard-min",
@@ -2214,10 +2318,10 @@ def _count_diff_at(dev, fof, k: int) -> dict:
                  str(N_CASES), "--threads", "4"]
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    main([*count_args, "--run-dir", run], device=dev)
+    cli_main([*count_args, "--run-dir", run], device=dev)
     t_count = time.perf_counter() - t0
     t0 = time.perf_counter()
-    main([*diff_args, "--output-dir", os.path.join(WORK, f"k{k}_defaults_gpu")],
+    cli_main([*diff_args, "--output-dir", os.path.join(WORK, f"k{k}_defaults_gpu")],
          device=dev)
     t_diff = time.perf_counter() - t0
     launches = kernels.launch_counts()
@@ -2225,9 +2329,9 @@ def _count_diff_at(dev, fof, k: int) -> dict:
     print(f"[k={k}] count {t_count:.3f} s, diff {t_diff:.3f} s (wall, CUDA); "
           f"launches {launches}")
     t0 = time.perf_counter()
-    tested, n_sig = _diff_cpu_vs_gpu(main, dev, diff_args, f"k{k}_defaults", 0.05, k)
+    tested, n_sig = _diff_cpu_vs_gpu(dev, diff_args, f"k{k}_defaults", 0.05, k)
     loose = [*diff_args, "-s", "0.001", "--cutoff", "1", "-c", "disabled"]
-    _tested, n_loose = _diff_cpu_vs_gpu(main, dev, loose, f"k{k}_loose", 0.001, k)
+    _tested, n_loose = _diff_cpu_vs_gpu(dev, loose, f"k{k}_loose", 0.001, k)
     if not n_loose["case"] or not n_loose["control"]:
         raise AssertionError(f"k={k}: no k-mer passed p < 0.001: {n_loose}")
     with open(fof) as f:
@@ -2237,7 +2341,7 @@ def _count_diff_at(dev, fof, k: int) -> dict:
         f.write(first)
     sid = first.split(":")[0].strip()
     run0 = os.path.join(WORK, f"run_k{k}_cpu0")
-    main([*count_args[:2], fof0, *count_args[3:], "--run-dir", run0], device="cpu")
+    cli_main([*count_args[:2], fof0, *count_args[3:], "--run-dir", run0], device="cpu")
     rels = [os.path.join("histograms", f"{sid}.hist")] + [
         os.path.join("counts", f"partition_{p}", f"{sid}.kmer.lz4") for p in range(4)]
     for rel in rels:
@@ -2262,7 +2366,7 @@ def run_multiword(dev, phase3) -> dict:
     import torch
 
     from kmdiff_tpu_torch import kernels
-    from kmdiff_tpu_torch.cli import count_options, diff_options, parse_args
+    from kmdiff_tpu_torch.cli import count_options, diff_options
     from kmdiff_tpu_torch.cmd.diff import main_diff
     from kmdiff_tpu_torch.cmd.run import main_run
 
@@ -2273,7 +2377,7 @@ def run_multiword(dev, phase3) -> dict:
 
     # (a) the fused run at k = 63, the defaults
     run_dir, out_dir = os.path.join(WORK, "fused_k63"), os.path.join(WORK, "fused_k63_out")
-    args = parse_args(["run", "--file", fof, "--kmer-size", "63", "--hard-min", "1",
+    args = cli_args(["run", "--file", fof, "--kmer-size", "63", "--hard-min", "1",
                        "--nb-partitions", "4", "--threads", "4", "-1",
                        str(N_CONTROLS), "-2", str(N_CASES), "--run-dir", run_dir,
                        "--output-dir", out_dir])
@@ -2313,7 +2417,7 @@ def run_multiword(dev, phase3) -> dict:
     outs, pop = {}, {}
     for label, where in (("gpu", dev), ("cpu", torch.device("cpu"))):
         o = os.path.join(WORK, f"pop_k63_{label}")
-        args = parse_args(["diff", "--km-run-dir", k63["run"], *flags, "--output-dir", o])
+        args = cli_args(["diff", "--km-run-dir", k63["run"], *flags, "--output-dir", o])
         timings = {}
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2434,7 +2538,6 @@ def run_plugins(dev, phase3) -> dict:
     import torch
 
     from kmdiff_tpu_torch import kernels
-    from kmdiff_tpu_torch.cli import main
     from kmdiff_tpu_torch.pipeline.merge import BLOCK_ROWS
 
     device_twin = os.path.join(PLUGINS, "device_fold_change_model.py")
@@ -2451,7 +2554,7 @@ def run_plugins(dev, phase3) -> dict:
         kernels.reset_launch_counts()
         with PluginWalls() as walls:
             t0 = time.perf_counter()
-            main([*base, "--model", model, "--output-dir", out], device=where)
+            cli_main([*base, "--model", model, "--output-dir", out], device=where)
             wall = time.perf_counter() - t0
         launches[label] = kernels.launch_counts()
         if launches[label]["lrt_filter"]:
@@ -2498,7 +2601,7 @@ def run_plugins(dev, phase3) -> dict:
     kernels.reset_launch_counts()
     with PluginWalls() as walls:
         t0 = time.perf_counter()
-        main(["run", "--file", phase3["fof"], "--kmer-size", "31",
+        cli_main(["run", "--file", phase3["fof"], "--kmer-size", "31",
               "--hard-min", "1", "--nb-partitions", "4", "--threads", "4",
               "-d", run_dir, "-1", str(N_CONTROLS), "-2", str(N_CASES),
               "--model", device_twin, "-o", out], device=dev)
@@ -2519,7 +2622,7 @@ def run_plugins(dev, phase3) -> dict:
 
     calls = os.path.join(WORK, "calls.tsv")
     t0 = time.perf_counter()
-    rc = main(["call", "-i", os.path.join(WORK, "loose_gpu", "case_kmers.fasta"),
+    rc = cli_main(["call", "-i", os.path.join(WORK, "loose_gpu", "case_kmers.fasta"),
                "-r", os.path.join(WORK, "sim", "truth.fasta"), "-o", calls],
               device=dev)
     wall = time.perf_counter() - t0
@@ -2535,7 +2638,7 @@ def run_plugins(dev, phase3) -> dict:
     text = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(text):
-        rc = main(["infos"], device=dev)
+        rc = cli_main(["infos"], device=dev)
     wall = time.perf_counter() - t0
     name = torch.cuda.get_device_name(0)
     if rc != 0 or name not in text.getvalue():
@@ -2577,7 +2680,7 @@ def _dist_commands(fof: str, world: int) -> tuple[dict, str, dict]:
     run_dir = os.path.join(WORK, f"dist{world}_run")
     outs = {name: os.path.join(WORK, f"dist{world}_{name}")
             for name in ("diff", "popstrat", "run")}
-    return {
+    commands = {
         "count": ["count", *count, "--threads", "4", "--run-dir", run_dir],
         "diff": ["diff", "--km-run-dir", run_dir, *loose, "--output-dir",
                  outs["diff"]],
@@ -2586,7 +2689,9 @@ def _dist_commands(fof: str, world: int) -> tuple[dict, str, dict]:
                      "--output-dir", outs["popstrat"]],
         "run": ["run", *count, *loose, "--run-dir", f"{run_dir}_of_run",
                 "--output-dir", outs["run"]],
-    }, run_dir, outs
+    }
+    return ({name: _one_shard(argv) for name, argv in commands.items()},
+            run_dir, outs)
 
 
 def _check_dist_output(label: str, phase3, run_dir: str, outs: dict) -> str:
@@ -2669,6 +2774,191 @@ def run_distributed(phase3, pop_walls) -> dict:
     return {f"distributed rank {r}": launches for r, launches in enumerate(per_rank)}
 
 
+#: the kernels each command of phase 10 must launch on a mesh
+MESH_KERNELS = {
+    "count": ("canonical_kmers", "partition_ids", "run_bounds"),
+    "loose diff": ("run_bounds", "compact", "lrt_filter"),
+    "popstrat diff": ("run_bounds", "compact", "run_rows", "geno_sample",
+                      "int_gram", "irls", "lrt_filter"),
+    "run": ("canonical_kmers", "run_bounds", "assemble_chunk", "lrt_filter"),
+    "count k=63": ("canonical_kmers_mw", "partition_ids", "run_bounds_mw"),
+}
+#: the kernels the real-card section must launch on every card
+EVERY_CARD = ("canonical_kmers", "canonical_kmers_mw", "partition_ids",
+              "int_gram")
+
+
+def _mesh_commands(fof: str, tag: str) -> tuple[dict, dict]:
+    """Phase 10's five command lines for outputs tagged `tag`, and each
+    command's output directory."""
+    loose = ["-1", str(N_CONTROLS), "-2", str(N_CASES), "--threads", "4", "-s",
+             "0.001", "--cutoff", "1", "-c", "disabled"]
+    count = ["--file", fof, "--hard-min", "1", "--nb-partitions", "4",
+             "--threads", "4"]
+    outs = {name: os.path.join(WORK, f"mesh_{tag}_{name.replace(' ', '_')}")
+            for name in MESH_KERNELS}
+    run_dir = outs["count"]
+    return {
+        "count": ["count", *count, "--kmer-size", "31", "--run-dir", run_dir],
+        "loose diff": ["diff", "--km-run-dir", run_dir, *loose, "--output-dir",
+                       outs["loose diff"]],
+        "popstrat diff": ["diff", "--km-run-dir", run_dir, *loose,
+                          "--pop-correction", "--save-sk", "--output-dir",
+                          outs["popstrat diff"]],
+        "run": ["run", *count, "--kmer-size", "31", *loose, "--run-dir",
+                f"{outs['run']}_rd", "--output-dir", outs["run"]],
+        "count k=63": ["count", *count, "--kmer-size", "63", "--run-dir",
+                       outs["count k=63"]],
+    }, outs
+
+
+def _same_files(label: str, a: str, b: str, subs) -> int:
+    """Require every file of a/sub equal to b/sub (names and bytes);
+    returns the number of files."""
+    n = 0
+    for sub in subs:
+        names = sorted(os.listdir(os.path.join(b, sub)))
+        if sorted(os.listdir(os.path.join(a, sub))) != names:
+            raise AssertionError(f"phase 10 {label} {sub}: other files than {b}'s")
+        for name in names:
+            if not _same_bytes(os.path.join(a, sub, name), os.path.join(b, sub, name)):
+                raise AssertionError(f"phase 10 {label} {sub}/{name} differs from {b}'s")
+        n += len(names)
+    return n
+
+
+def _check_mesh_output(label: str, out: str, ref: str) -> str:
+    """Hold a phase-10 command's output against its reference: count files,
+    histograms and the run directory's files; the FASTA; popstrat's FASTA,
+    pcs.evec and --save-sk matrices."""
+    fasta = ("control_kmers.fasta", "case_kmers.fasta")
+    if label.startswith("count"):
+        n = _same_files(label, out, ref, [
+            *(os.path.join("counts", f"partition_{p}") for p in range(4)),
+            "histograms"])
+        if label == "count":
+            for name in ("kmtricks.fof", "kmdiff-count.opt"):
+                if not _same_bytes(os.path.join(out, name), os.path.join(ref, name)):
+                    raise AssertionError(f"phase 10 count: {name} differs")
+        return f"{n} files byte-identical"
+    names = list(fasta)
+    n_mat = 0
+    if label == "popstrat diff":
+        names.append(os.path.join("popstrat", "pcs.evec"))
+        n_mat = _same_files(label, out, ref, [os.path.join(
+            "positive_kmer_matrix", "matrices")])
+    for name in names:
+        if not _same_bytes(os.path.join(out, name), os.path.join(ref, name)):
+            raise AssertionError(f"phase 10 {label} {name} differs from {ref}'s")
+    return ("FASTA" + (f", pcs.evec and {n_mat} matrices" if n_mat else "")
+            + " byte-identical")
+
+
+def _drive(argv, dev) -> float:
+    """One phase-10 command on `dev`; its wall seconds. `run` goes through
+    cmd.run.main_run (the options the CLI builds), which must take the
+    fused path."""
+    from kmdiff_tpu_torch.cli import count_options, diff_options, main, parse_args
+    from kmdiff_tpu_torch.cmd.run import main_run
+    from kmdiff_tpu_torch.parallel import runtime
+
+    t0 = time.perf_counter()
+    if argv[0] != "run":
+        if main(argv, device=dev) != 0:
+            raise AssertionError(f"phase 10: {argv[0]} failed")
+        return time.perf_counter() - t0
+    args = parse_args(argv)
+    timings = {}
+    try:
+        main_run(count_options(args), diff_options(args), dev,
+                 recurrence_min=args.recurrence_min,
+                 count_files=not args.no_count_files, timings=timings)
+    finally:
+        runtime.configure(None)
+    if "merge" not in timings:
+        raise AssertionError("phase 10: run was not served by the fused path")
+    return time.perf_counter() - t0
+
+
+def run_mesh(dev, fof: str, refs: dict | None) -> dict:
+    """Phase 10: the mesh runtime on phase 3's cohort at its full size. The
+    five commands (count, the loose diff, popstrat diff --save-sk, the
+    fused loose run, count at k = 63) run with --devices 1, then on a
+    virtual mesh of two shards on the first card (parallel.runtime's
+    switch), then, when the machine has two cards or more, on min(4,
+    cards) real cards. Every mesh output must be byte-identical to the
+    one-shard run's, which must be byte-identical to refs (phases 3, 5 and
+    7's outputs) where given; each command must launch MESH_KERNELS, and
+    the real-card section EVERY_CARD on every card. Prints each command's
+    wall beside the one-shard wall. Returns the launches of the virtual
+    two-shard run (all five commands)."""
+    import torch
+
+    from kmdiff_tpu_torch import kernels
+    from kmdiff_tpu_torch.parallel import runtime
+
+    n_cards = torch.cuda.device_count()
+    configs = [("one shard", 1, False), ("2 shards on cuda:0 (virtual)", 2, True)]
+    if n_cards >= 2:
+        configs.append((f"{min(4, n_cards)} cards", min(4, n_cards), False))
+    walls, mesh_launches = {}, None
+    one_outs = None
+    try:
+        for name, D, virtual in configs:
+            runtime.set_virtual(virtual)
+            commands, outs = _mesh_commands(fof, f"d{D}{'v' if virtual else ''}")
+            launches = dict.fromkeys(kernels.launch_counts(), 0)
+            cards: dict[int, dict] = {}
+            for label, argv in commands.items():
+                kernels.reset_launch_counts()
+                wall = _drive([*argv, "--devices", str(D)], dev)
+                got = kernels.launch_counts()
+                require_launches(f"phase 10 {name} {label}", got,
+                                 MESH_KERNELS[label] if D > 1 else
+                                 [k for k in MESH_KERNELS[label] if k != "partition_ids"])
+                if D == 1 and got["partition_ids"]:
+                    raise AssertionError(f"phase 10 one shard {label} launched K-PART")
+                for d, by in kernels.launch_counts_by_device().items():
+                    for k, v in by.items():
+                        cards.setdefault(d, dict.fromkeys(by, 0))[k] += v
+                for k, v in got.items():
+                    launches[k] += v
+                if D == 1:
+                    walls[label] = wall
+                    line = f"{wall:.3f} s wall"
+                    if refs:
+                        line += "; " + _check_mesh_output(
+                            label, outs[label], refs[label]) + f" to {refs[label]}'s"
+                else:
+                    what = _check_mesh_output(label, outs[label], one_outs[label])
+                    line = (f"{wall:.3f} s wall against one shard's "
+                            f"{walls[label]:.3f} s ({wall / walls[label]:.2f}x); "
+                            f"{what} to one shard's")
+                print(f"[mesh {name}] {label}: {line}; launches (above 0) "
+                      + str({k: v for k, v in got.items() if v}))
+            if D == 1:
+                one_outs = outs
+            elif virtual:
+                mesh_launches = launches
+            else:
+                for d in range(D):
+                    missing = [k for k in EVERY_CARD if not cards.get(d, {}).get(k)]
+                    if missing:
+                        raise AssertionError(f"phase 10 {name}: cuda:{d} never "
+                                             f"launched {missing}")
+                print(f"[mesh {name}] launches by card: " + "; ".join(
+                    f"cuda:{d} " + str({k: v for k, v in by.items() if v})
+                    for d, by in sorted(cards.items())))
+    finally:
+        runtime.set_virtual(False)
+        runtime.configure(None)
+    print(f"[mesh] two shards on one card measure the overhead of sharding, "
+          f"not a speedup; real cards: "
+          + (f"{min(4, n_cards)} of {n_cards}" if n_cards >= 2
+             else "not run (one card on this machine)"))
+    return mesh_launches
+
+
 def load_native() -> None:
     """Build and load the port's native host-IO library; it must come from
     the checkout's build/kmdiff_tpu_torch/native/."""
@@ -2711,16 +3001,13 @@ def main() -> int:
     kernels.lib()
     print(f"kernels built in {kernels.build_seconds:.1f} s (loaded "
           f"{time.perf_counter() - t0:.1f} s): {kernels.library_path()}")
-    ptxas = [line.strip() for line in
-             kernels.build_log.get("canonical_kmers", "").splitlines()
-             if "registers" in line or "spill" in line]
-    print("[K-EXT] nvcc -Xptxas -v: " + ("; ".join(ptxas) or
-                                         "(library loaded from an earlier build)"))
-    ptxas = [line.strip() for line in
-             kernels.build_log.get("int_gram", "").splitlines()
-             if "registers" in line or "spill" in line]
-    print("[K-GRAM] nvcc -Xptxas -v: " + ("; ".join(ptxas) or
-                                          "(library loaded from an earlier build)"))
+    for tag, source in (("K-EXT", "canonical_kmers"), ("K-GRAM", "int_gram"),
+                        ("K-PART", "partition_ids")):
+        ptxas = [line.strip() for line in
+                 kernels.build_log.get(source, "").splitlines()
+                 if "registers" in line or "spill" in line]
+        print(f"[{tag}] nvcc -Xptxas -v: " + ("; ".join(ptxas) or
+                                              "(library loaded from an earlier build)"))
     load_native()
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -2737,6 +3024,13 @@ def main() -> int:
         mw_launches = run_multiword(dev, phase3)
         plugin_launches = run_plugins(dev, phase3)
         dist_launches = run_distributed(phase3, pop_walls)
+        mesh_launches = run_mesh(dev, phase3["fof"], {
+            "count": phase3["run"],
+            "loose diff": os.path.join(WORK, "loose_gpu"),
+            "popstrat diff": os.path.join(WORK, "pop_gpu"),
+            "run": os.path.join(WORK, "loose_gpu"),
+            "count k=63": os.path.join(WORK, "run_k63"),
+        })
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     paths = {"count+diff": phase3["launches"], "run (a)": fused_launches["a"],
@@ -2744,7 +3038,8 @@ def main() -> int:
              "popstrat run": pop_run_launches, "wide diff": wide_launches["a"],
              "wide popstrat diff": wide_launches["b"],
              "forced-wide run": wide_launches["c"], **mw_launches,
-             **plugin_launches, **dist_launches}
+             **plugin_launches, **dist_launches,
+             "mesh (2 virtual shards)": mesh_launches}
     for name in timings:
         print(f"[launches] {name}: " + ", ".join(
             f"{path} {launches[name]}" for path, launches in paths.items()))
@@ -2776,6 +3071,8 @@ def main() -> int:
                               mw_launches["run (a) k=63"]),
         "geno_sample_mw": ("kmdiff_tpu/ops/merge_dev.py:323",
                            mw_launches["popstrat diff k=63"]),
+        # K-PART runs on the mesh path only: phase 10's two virtual shards
+        "partition_ids": ("kmdiff_tpu/ops/codec.py:175", mesh_launches),
     }
     rows = []
     for name, (replaces, launches) in meta.items():
@@ -2789,6 +3086,8 @@ def main() -> int:
             rows[-1]["wide_launches"] = wide_launches["a"][name]
         # phase 9: the launches of both ranks over their four commands
         rows[-1]["dist_launches"] = sum(d[name] for d in dist_launches.values())
+        # phase 10: the launches of the two virtual shards' five commands
+        rows[-1]["mesh_launches"] = mesh_launches[name]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

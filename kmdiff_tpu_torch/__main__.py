@@ -3,9 +3,10 @@
 With KMDIFF_RUN_REPORT=PATH the process also writes one JSON object to PATH
 when the command succeeds: its start (the clock's "start", seconds since
 the epoch), its wall seconds ("seconds") and the kernel launches it made
-("launches", kernels.launch_counts()). Launch counts are per process, so
-this is how a caller reads what each rank of a ``--distributed`` run
-launched.
+("launches", kernels.launch_counts()). Launch counts are per process and
+summed over its threads (a ``--devices N`` mesh launches from a thread a
+shard), so this is how a caller reads what each rank of a
+``--distributed`` run launched.
 """
 
 import json

@@ -3,16 +3,17 @@
 build_parser has every subcommand, flag, default and dest of the JAX
 package's (kmdiff_tpu/cli.py, after the reference's src/cli.cpp:23-369), so
 a command line runs unchanged on either package. ``count``, ``diff``, ``run``
-(with ``--model`` plugins, and over several processes with
-``--distributed``), ``popsim``, ``call`` and ``infos`` run on the port;
-``warmup``, and every flag of a path not ported yet (``--devices`` above 1,
-``--profile``), raises NotImplementedError naming its item in ROADMAP.md's
-port queue.
+(with ``--model`` plugins, over a mesh of shards with ``--devices``, and
+over several processes with ``--distributed``), ``popsim``, ``call`` and
+``infos`` run on the port; ``warmup``, and every flag of a path not ported
+yet (``--devices`` above 1 with ``--distributed``, ``--profile``), raises
+NotImplementedError naming its item in ROADMAP.md's port queue.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import torch
@@ -303,9 +304,11 @@ def _reject_unported(args) -> None:
             "'warmup' only fills the XLA compile cache; the port compiles "
             "nothing ahead of time (ROADMAP.md: not to port)"
         )
-    if args.devices > 1:
-        raise _unported(f"--devices {args.devices}",
-                        "item 7b: the mesh programs")
+    if args.devices > 1 and (args.distributed
+                             or os.environ.get("KMDIFF_COORDINATOR")):
+        from kmdiff_tpu_torch.parallel.runtime import mesh_under_distributed
+
+        raise mesh_under_distributed(args.devices)
     if args.profile:
         raise _unported("--profile", "item 10: a torch.profiler trace")
 
@@ -385,7 +388,7 @@ def main(argv: list[str] | None = None,
     if args.command not in ("count", "diff", "run"):
         return _dispatch(args, dev)
 
-    from kmdiff_tpu_torch.parallel import distributed
+    from kmdiff_tpu_torch.parallel import distributed, runtime
 
     # --distributed, or KMDIFF_COORDINATOR and friends: every rank runs
     # this command on its own device (parallel.distributed)
@@ -402,6 +405,8 @@ def main(argv: list[str] | None = None,
         return rc
     finally:
         distributed.shutdown()
+        # the command's --devices lives for the command, as its group does
+        runtime.configure(None)
 
 
 def _dispatch(args, dev: torch.device) -> int:

@@ -8,6 +8,7 @@ import os
 import torch
 
 from kmdiff_tpu_torch.cmd.options import CountOptions
+from kmdiff_tpu_torch.parallel import runtime
 from kmdiff_tpu_torch.parallel.distributed import barrier, is_primary
 from kmdiff_tpu_torch.utils.logging import logger
 from kmdiff_tpu_torch.utils.timer import Timer
@@ -17,7 +18,10 @@ from kmdiff_tpu_torch.pipeline.count import run_count
 def main_count(opt: CountOptions, device: torch.device) -> None:
     """The `count` command. Under the multi-process runtime only the
     primary writes kmdiff-count.opt, once every rank has counted, and no
-    rank returns before the file is there (barrier "count_complete")."""
+    rank returns before the file is there (barrier "count_complete"). The
+    shard budget (--devices) configures the mesh runtime
+    (parallel.runtime)."""
+    runtime.configure(opt.n_devices)
     timer = Timer()
     run_count(opt, device)
     if is_primary():

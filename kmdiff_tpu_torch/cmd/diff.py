@@ -214,7 +214,11 @@ def main_diff(opt: DiffOptions, device: torch.device,
     given, receives popstrat's "pca", "null_fit" and "alt_fits" seconds.
     With --model the plugin is loaded (and refused) before anything else,
     on every rank. Under the multi-process runtime the ranks share the
-    partitions (_main_diff_distributed)."""
+    partitions (_main_diff_distributed). The shard budget (--devices)
+    configures the mesh runtime (parallel.runtime)."""
+    from kmdiff_tpu_torch.parallel import runtime
+
+    runtime.configure(opt.n_devices)
     model = load_custom_model(opt)
     whole = Timer()
     config = read_config(opt.kmtricks_dir)

@@ -42,9 +42,11 @@ def main_infos(device: torch.device) -> str:
         "features   : count, diff, run (k 8-128), popstrat, --save-sk,",
         "             model plugins (process_block_torch, process_block,",
         "             process), call, popsim, FASTA + KFF output, resume,",
-        "             --distributed (ranks of a gloo process group)",
-        "not ported : --devices > 1 (raises, ROADMAP port queue item 7b:",
-        "             the mesh programs), --profile (raises, item 10),",
-        "             KMDIFF_GROUP_MERGE (item 1: run ignores it)",
+        "             --distributed (ranks of a gloo process group),",
+        "             --devices N (a mesh of N shards in one process)",
+        "not ported : --devices > 1 with --distributed (raises, ROADMAP",
+        "             port queue item 7c: the mesh under --distributed),",
+        "             --profile (raises, item 10), KMDIFF_GROUP_MERGE",
+        "             (item 1: run ignores it)",
     ]
     return "\n".join(lines)

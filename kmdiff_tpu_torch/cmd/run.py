@@ -1,5 +1,5 @@
 """`run`: FASTA -> significant k-mers in one process (port of
-kmdiff_tpu/cmd/run.py, one device).
+kmdiff_tpu/cmd/run.py; one device, or a mesh of shards: --devices).
 
 A fresh run counts every sample to a stream that stays on the device
 (pipeline.fused) and merges the streams there: the count's device-to-host
@@ -78,7 +78,12 @@ def main_run(copt: CountOptions, dopt: DiffOptions, device: torch.device,
     """The `run` command. recurrence_min is accepted and not applied, as in
     the count stage. timings, when given, receives the wall seconds of the
     fused path's phases ("count", "merge", "total", and with popstrat
-    "pca", "null_fit", "alt_fits"); the result dict is main_diff's."""
+    "pca", "null_fit", "alt_fits"); the result dict is main_diff's. The
+    shard budget (--devices) configures the mesh runtime
+    (parallel.runtime)."""
+    from kmdiff_tpu_torch.parallel import runtime
+
+    runtime.configure(dopt.n_devices)
     manifest = os.path.join(dopt.output_directory, "options.json")
     if (is_distributed() or dopt.model_lib_path or os.path.exists(manifest)
             or _run_dir_complete(copt.directory)):

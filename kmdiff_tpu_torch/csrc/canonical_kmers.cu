@@ -236,14 +236,15 @@ KMD_API long long kmd_canonical_kmers_tile_windows() { return kTile; }
 KMD_API int kmd_canonical_kmers(const uint8_t* codes, long long N, int k,
                                 int64_t* keys, cudaStream_t stream) {
   if (k < 1 || k > kMaxK || N < k) return static_cast<int>(cudaErrorInvalidValue);
-  static int n_sms = 0;
-  if (n_sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  static kmd::PerDevice<int> sms_of;  // SMs of each card
+  int n_sms = 0;
+  const int rc = sms_of.get(
+      [](int dev, int* n) {
+        return static_cast<int>(
+            cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev));
+      },
+      &n_sms);
+  if (rc != 0) return rc;
   const long long W = N - k + 1;
   const long long n_tiles = (W + kTile - 1) / kTile;
   const long long grid =
@@ -597,22 +598,26 @@ template <int NW>
 int launch_mw(const uint8_t* codes, long long N, int k, int64_t* keys,
               cudaStream_t stream) {
   using Sh = MwShape<NW>;
-  static int grid_max = 0;  // blocks the card holds at once
-  if (grid_max == 0) {
-    int dev = 0, n_sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(canonical_kmers_mw_kernel<NW>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, canonical_kmers_mw_kernel<NW>, kMwThreads, Sh::kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    grid_max = n_sms * per_sm;
-  }
+  // blocks each card holds at once, its shared-memory attribute set
+  static kmd::PerDevice<int> grid_of;
+  int grid_max = 0;
+  const int rc = grid_of.get(
+      [](int dev, int* grid) {
+        int n_sms = 0, per_sm = 0;
+        cudaError_t err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err == cudaSuccess)
+          err = cudaFuncSetAttribute(canonical_kmers_mw_kernel<NW>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmem);
+        if (err == cudaSuccess)
+          err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &per_sm, canonical_kmers_mw_kernel<NW>, kMwThreads, Sh::kSmem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+        *grid = n_sms * per_sm;
+        return 0;
+      },
+      &grid_max);
+  if (rc != 0) return rc;
   const long long W = N - k + 1;
   const long long n_tiles = (W + Sh::kTile - 1) / Sh::kTile;
   const long long grid = std::min(n_tiles, static_cast<long long>(grid_max));

@@ -367,26 +367,31 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) gram_kernel(const Args
   }
 }
 
-// blocks an SM of gram_kernel<MT> at kSmem (0 on a CUDA error)
+// blocks an SM of gram_kernel<MT> at kSmem on the current card, its
+// shared-memory attribute set there (0 on a CUDA error)
+struct Residency {
+  int sms;
+  int per_sm;
+};
+
 template <int MT>
 int resident_blocks(int* n_sms) {
-  static int sms = 0;
-  static int per_sm = 0;
-  if (per_sm == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(gram_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kSmem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gram_kernel<MT>, kThreads,
-                                                          kSmem);
-    if (err != cudaSuccess) per_sm = 0;
-  }
-  *n_sms = sms;
-  return per_sm;
+  static kmd::PerDevice<Residency> residency_of;
+  Residency r{0, 0};
+  const int rc = residency_of.get(
+      [](int dev, Residency* out) {
+        cudaError_t err = cudaDeviceGetAttribute(&out->sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err == cudaSuccess)
+          err = cudaFuncSetAttribute(gram_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     kSmem);
+        if (err == cudaSuccess)
+          err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out->per_sm, gram_kernel<MT>,
+                                                              kThreads, kSmem);
+        return static_cast<int>(err);
+      },
+      &r);
+  *n_sms = r.sms;
+  return rc != 0 ? 0 : r.per_sm;
 }
 
 // The fused form's launch plan for a [B, S] matrix, S <= kFusedMaxS (0 on

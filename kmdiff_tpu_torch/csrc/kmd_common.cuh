@@ -8,6 +8,7 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
 
 #define KMD_API extern "C" __attribute__((visibility("default")))
@@ -22,5 +23,43 @@ constexpr int64_t kSentinel = INT64_MAX;
 inline unsigned grid_for(long long n, int threads) {
   return static_cast<unsigned>((n + threads - 1) / threads);
 }
+
+// A launch setting computed once for each CUDA device, on the calling
+// thread's current device: cudaFuncSetAttribute and the occupancy and
+// attribute queries apply to the current device only, so a process-wide
+// static set on the first card would leave every other card unset. The
+// setting is made under a lock, so threads that launch on several cards (the
+// mesh runtime's shards) or on one card (count's sample threads) set each
+// device once; a failed setting is not kept and is tried again at the next
+// call.
+constexpr int kMaxDevices = 64;
+
+template <typename T>
+class PerDevice {
+ public:
+  // init(dev, &value) returns a cudaError_t (0 on success)
+  template <typename Init>
+  int get(Init init, T* value) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+    std::lock_guard<std::mutex> lock(mu_);
+    if (!set_[dev]) {
+      T v{};
+      const int e = init(dev, &v);
+      if (e != 0) return e;
+      value_[dev] = v;
+      set_[dev] = true;
+    }
+    *value = value_[dev];
+    return 0;
+  }
+
+ private:
+  std::mutex mu_;
+  bool set_[kMaxDevices] = {};
+  T value_[kMaxDevices] = {};
+};
 
 }  // namespace kmd

@@ -15,6 +15,9 @@ The kernels live in ``csrc/*.cu`` beside this file:
   geno_sample      K-GENO  hashed k-mer sample        (ops.merge_dev)
   int_gram         K-GRAM  exact 0/1 Gram             (ops.pca)
   irls             K-IRLS  batched logistic IRLS      (ops.glm)
+  partition_ids    K-PART  owner shard of each k-mer  (ops.codec; the mesh
+                           and the rows a shard gets   count, parallel.
+                                                       count_step)
 
 K-EXT, K-RUN, K-ASM and K-GENO also have a multi-word form for k > 32
 (keys of 2-4 u64 words, word-major [nw, N]) in the same source, counted
@@ -30,8 +33,11 @@ checkout; the file name carries a hash of the sources, so an edited source
 is rebuilt and a stale library is never loaded.
 
 Each call of a kernel's C entry point (``launch``) adds one to that
-kernel's launch count (``launch_counts``); a caller resets the counts,
-drives a path and reads them to show the path went through the kernels. A
+kernel's launch count (``launch_counts``), and to its count on the device
+it launched on (``launch_counts_by_device``); the counts are process-wide,
+summed over every thread (the mesh runtime's shards launch from a thread
+each). A caller resets the counts, drives a path and reads them to show the
+path went through the kernels. A
 C entry point returns ``cudaGetLastError()`` after its launches (K-CMP's,
 K-RUN's and K-HIST's, which return results in page-locked host memory,
 after waiting for their kernel) and
@@ -56,7 +62,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kmdiff_tpu_torch")
 
 KERNELS = ("lrt_filter", "canonical_kmers", "run_bounds", "compact",
            "assemble_chunk", "weighted_runs", "abundance_hist", "run_rows",
-           "geno_sample", "int_gram", "irls")
+           "geno_sample", "int_gram", "irls", "partition_ids")
 
 #: the multi-word forms' launch-count names -> the kernel (source) of each
 MULTIWORD = {"canonical_kmers_mw": "canonical_kmers", "run_bounds_mw": "run_bounds",
@@ -109,29 +115,39 @@ _SIGNATURES = {
     "kmd_irls_layout": (_ll, [_i, _i, _i, _i, _ll, _vp, _vp]),
     "kmd_irls": (_i, [_vp, _ll, _vp, _vp, _ll, _i, _i, _i, _f, _f, _ll, _vp, _vp,
                       _vp, _vp, _vp, _vp]),
+    "kmd_partition_ids": (_i, [_vp, _ll, _ll, _i, _u, _i, _vp, _vp]),
     "kmd_error_string": (ctypes.c_char_p, [_i]),
 }
 
 
 class _Launches:
-    """Per-kernel launch counts, shared by every thread of the process
-    (the count and diff pipelines launch from worker threads)."""
+    """Per-kernel launch counts, in all and by CUDA device index, shared by
+    every thread of the process (the count and diff pipelines and the mesh
+    runtime's shards launch from worker threads)."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._n = dict.fromkeys((*KERNELS, *MULTIWORD), 0)
+        self.reset()
 
-    def add(self, name: str) -> None:
+    def add(self, name: str, device: int) -> None:
         with self._lock:
             self._n[name] += 1
+            by = self._by_device.setdefault(
+                device, dict.fromkeys((*KERNELS, *MULTIWORD), 0))
+            by[name] += 1
 
     def reset(self) -> None:
         with self._lock:
             self._n = dict.fromkeys((*KERNELS, *MULTIWORD), 0)
+            self._by_device: dict[int, dict[str, int]] = {}
 
     def snapshot(self) -> dict[str, int]:
         with self._lock:
             return dict(self._n)
+
+    def snapshot_by_device(self) -> dict[int, dict[str, int]]:
+        with self._lock:
+            return {d: dict(n) for d, n in self._by_device.items()}
 
 
 _launches = _Launches()
@@ -150,6 +166,11 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return _launches.snapshot()
+
+
+def launch_counts_by_device() -> dict[int, dict[str, int]]:
+    """{CUDA device index: launch counts on it} since the last reset."""
+    return _launches.snapshot_by_device()
 
 
 def sources() -> list[str]:
@@ -244,12 +265,13 @@ def launch(kernel: str, entry: str, *args) -> None:
     handle = lib()
     # the raw handle: torch.cuda.current_stream() builds a Stream object,
     # which costs more host time than the launch itself
-    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    device = torch.cuda.current_device()
+    stream = torch._C._cuda_getCurrentRawStream(device)
     rc = getattr(handle, entry)(*args, stream)
     if rc != 0:
         msg = handle.kmd_error_string(rc).decode()
         raise RuntimeError(f"{entry}: CUDA error {rc} ({msg})")
-    _launches.add(kernel)
+    _launches.add(kernel, device)
 
 
 def ptr(t: torch.Tensor | None):

@@ -33,6 +33,10 @@ of K-EXT and K-RUN with a multi-word form beside the one-word one:
   K-HIST rle_stats        n_valid and u32 or int64 counts -> n_valid, the
                           largest count and [257] abundance cardinalities,
                           in one launch and one host sync
+  K-PART partition_targets
+                          keys -> each row's owner shard ((partition hash
+                          mod P) mod D, D for a sentinel) and the rows a
+                          shard gets: the mesh count's bucketing
 
 ``sort_rle`` and ``fused_count`` chain them into the counting program
 (sort_rle_core / fused_count_kernel in the JAX package), ``dedup_sum`` into
@@ -587,6 +591,72 @@ def rle_stats(n_valid: torch.Tensor, counts: torch.Tensor,
                        out.data_ptr())
     return RleStats(int(host[0]), int(host[1]),
                     host[2:].copy() if with_hist else None)
+
+
+# -- K-PART --------------------------------------------------------------------
+# The partition hash of pipeline/count.py::host_partition_ids (the JAX
+# package's partition_ids_lanes), on int64 values below 2^32 with explicit
+# masks.
+
+_HASH_SEED = 0x9E3779B9
+
+
+def _mul_u32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h * c) mod 2^32 for h < 2^32 in int64, in 16-bit halves of c so
+    that no product reaches 2^63."""
+    return (h * (c & 0xFFFF) + (((h * (c >> 16)) & 0xFFFF) << 16)) & _U32
+
+
+def _avalanche(h: torch.Tensor) -> torch.Tensor:
+    """murmur3's fmix32 on int64 values below 2^32."""
+    h = h ^ (h >> 16)
+    h = _mul_u32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul_u32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def partition_targets_plain(keys: torch.Tensor, nb_partitions: int,
+                            n_shards: int):
+    rows = keys.reshape(1, -1) if keys.dim() == 1 else keys
+    h = torch.full_like(rows[0], _HASH_SEED)
+    for word in rows:
+        hi = ((word >> 32) & _U32) ^ 0x80000000  # the top half of key ^ 1<<63
+        h = _avalanche(hi ^ h)
+        h = _avalanche((word & _U32) ^ h)
+    sentinel = (rows == SENTINEL).all(0)
+    targets = torch.where(sentinel, n_shards,
+                          h % nb_partitions % n_shards).to(torch.int32)
+    counts = torch.bincount(targets.to(torch.int64), minlength=n_shards + 1)
+    return targets, counts
+
+
+def partition_targets(keys: torch.Tensor, nb_partitions: int, n_shards: int):
+    """K-PART: keys [N] int64 or [nw, N] word-major (a view whose rows have
+    unit stride is taken) -> (targets [N] int32, each row's owner shard:
+    (its partition, host_partition_ids' hash mod nb_partitions) mod
+    n_shards, or n_shards for a sentinel row; counts [n_shards + 1] int64,
+    the rows of each target). One launch a call; the counts stay on the
+    device."""
+    if not 1 <= n_shards <= 1024 or nb_partitions < 1:
+        raise ValueError(f"partition_targets: {n_shards} shards, "
+                         f"{nb_partitions} partitions")
+    if keys.device.type == "cpu":
+        return partition_targets_plain(keys, nb_partitions, n_shards)
+    if keys.dim() == 1:
+        kernels.require_cuda_tensor("partition_targets keys", keys, torch.int64)
+        nw, ld = 1, keys.numel()
+    else:
+        ld = kernels.require_cuda_rows("partition_targets keys", keys)
+        nw = keys.shape[0]
+    N = keys.shape[-1]
+    targets = torch.empty(N, dtype=torch.int32, device=keys.device)
+    counts = torch.empty(n_shards + 1, dtype=torch.int64, device=keys.device)
+    with torch.cuda.device(keys.device):
+        kernels.launch("partition_ids", "kmd_partition_ids", keys.data_ptr(),
+                       ld, N, nw, nb_partitions, n_shards, targets.data_ptr(),
+                       counts.data_ptr())
+    return targets, counts
 
 
 # -- counting ------------------------------------------------------------------

@@ -42,6 +42,7 @@ import torch
 
 from kmdiff_tpu_torch import kernels
 from kmdiff_tpu_torch.ops.codec import (
+    _avalanche,
     _run_ends,
     compact,
     run_encode,
@@ -121,20 +122,6 @@ def pca_threshold_u32(rate: float) -> np.uint32:
 
 
 # -- K-GENO --------------------------------------------------------------------
-
-def _mul_u32(h: torch.Tensor, c: int) -> torch.Tensor:
-    """(h * c) mod 2^32 for h < 2^32 in int64, in 16-bit halves of c so
-    that no product reaches 2^63."""
-    return (h * (c & 0xFFFF) + (((h * (c >> 16)) & 0xFFFF) << 16)) & _U32
-
-
-def _avalanche(h: torch.Tensor) -> torch.Tensor:
-    h = h ^ (h >> 16)
-    h = _mul_u32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul_u32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
-
 
 def geno_sample_plain(keys: torch.Tensor, thr, seed: int) -> torch.Tensor:
     """The hash chain over each word's hi32 then lo32, most significant

@@ -52,10 +52,18 @@ def int_gram(X: torch.Tensor) -> torch.Tensor:
     return gram
 
 
-def _int_gram(X01: np.ndarray, device: torch.device) -> np.ndarray:
-    """Exact integer Gram of a host 0/1 matrix through K-GRAM, [S, S] f64."""
-    X = torch.from_numpy(np.ascontiguousarray(X01, dtype=np.uint8)).to(device)
-    return int_gram(X).cpu().numpy().astype(np.float64)
+def _int_gram(X01: np.ndarray, mesh) -> np.ndarray:
+    """Exact integer Gram of a host 0/1 matrix through K-GRAM, [S, S] f64.
+    The rows split into contiguous blocks, one a shard of the mesh
+    (parallel.mesh.Mesh), each through K-GRAM on its shard's device, and the
+    int64 partials are summed: the sum is exact, so the Gram is the same on
+    any mesh (kmdiff_tpu/ops/pca.py:56-110, which shards its f32-exact row
+    tiles)."""
+    X01 = np.ascontiguousarray(X01, dtype=np.uint8)
+    blocks = mesh.blocks(len(X01))
+    partials = mesh.map(lambda d, dev: int_gram(torch.from_numpy(
+        X01[slice(*blocks[d])]).to(dev)).cpu().numpy(), len(blocks))
+    return np.sum(partials, axis=0, dtype=np.int64).astype(np.float64)
 
 
 def eigenstrat_pca(geno: np.ndarray, device: torch.device,
@@ -66,7 +74,11 @@ def eigenstrat_pca(geno: np.ndarray, device: torch.device,
     Returns (Z [S, n] per-sample principal components, the pcs.evec
     columns, unit-norm; evals [n] descending), bit-identical to
     kmdiff_tpu.ops.pca.eigenstrat_pca: the same host arithmetic in the same
-    order around exact integer Grams."""
+    order around exact integer Grams (over the mesh's shards, with a
+    mesh: parallel.runtime)."""
+    from kmdiff_tpu_torch.parallel.runtime import get_mesh
+
+    mesh = get_mesh(device)
     M, S = geno.shape
     n_evec = min(n_evec, S)
     if M == 0:
@@ -85,7 +97,7 @@ def eigenstrat_pca(geno: np.ndarray, device: torch.device,
         a, b = int(bounds[gi]), int(bounds[gi + 1])
         idx = order[a:b]
         Xg = np.ascontiguousarray(geno[idx])
-        G = _int_gram(Xg, device)                        # exact integers
+        G = _int_gram(Xg, mesh)                          # exact integers
         C = Xg.sum(axis=0, dtype=np.int64).astype(np.float64)
         n_g = float(b - a)
         m = float(rv) / S

@@ -1,5 +1,6 @@
 """k-mer counting: reads -> kmtricks-compatible run directory (port of
-kmdiff_tpu/pipeline/count.py, single device, 8 <= k <= 128).
+kmdiff_tpu/pipeline/count.py, 8 <= k <= 128; one device, or a mesh:
+count_sample_device_mesh).
 
 Per sample:
 
@@ -76,15 +77,7 @@ def _host_code_chunks(all_codes: list[np.ndarray], k: int,
     spans two files) and cut them into chunks of <= sort_rows windows with
     k-1 codes of overlap, so every window lies in exactly one chunk. No
     padding: the device takes any length."""
-    sep = np.full(1, INVALID, dtype=np.uint8)
-    parts = []
-    for c in all_codes:
-        if parts:
-            parts.append(sep)
-        parts.append(c)
-    if not parts:
-        return []
-    codes = parts[0] if len(parts) == 1 else np.concatenate(parts)
+    codes = _join_codes(all_codes)
     if len(codes) < k:
         return []
     return [codes[s : s + sort_rows + k - 1]
@@ -163,13 +156,67 @@ def spill_resident_sample(run_dir: str, entry_id: str, sample_idx: int,
                              nb_partitions, kmers, parts, counts)
 
 
+def _join_codes(all_codes: list[np.ndarray]) -> np.ndarray:
+    """The per-file code arrays joined with one INVALID separator."""
+    sep = np.full(1, INVALID, dtype=np.uint8)
+    parts = []
+    for c in all_codes:
+        if parts:
+            parts.append(sep)
+        parts.append(c)
+    if not parts:
+        return np.zeros(0, np.uint8)
+    return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+
+def count_sample_device_mesh(all_codes: list[np.ndarray], k: int,
+                             nb_partitions: int, mesh):
+    """Count one sample on a mesh (kmdiff_tpu/pipeline/count.py:379-477):
+    the code stream splits into chunks with k-1 codes of overlap, D of them
+    a round, each of at most SORT_ROWS windows, so a sample above D x
+    SORT_ROWS windows runs in rounds. In each round shard s extracts chunk
+    s's k-mers and the counting shuffle (parallel.count_step.count_shards)
+    leaves every shard the counted k-mers of the partitions it owns; a
+    shard's rounds merge as count_sample_device's chunks do. The shards'
+    streams, concatenated in shard order, regroup stably by partition: each
+    partition lives on one shard and arrives sorted, so the output, sorted
+    by (partition, k-mer), equals count_sample_device's."""
+    from kmdiff_tpu_torch.parallel.count_step import count_shards
+
+    D = mesh.size
+    codes = _join_codes(all_codes)
+    W = len(codes) - k + 1
+    if W <= 0:
+        return (np.zeros((0, n_words(k)), np.uint64), np.zeros(0, np.uint32),
+                np.zeros(0, np.uint32))
+    n_rounds = -(-W // (D * SORT_ROWS))
+    step = -(-W // (D * n_rounds))
+    chunks = [codes[s : s + step + k - 1] for s in range(0, W, step)]
+    rounds = [chunks[r : r + D] for r in range(0, len(chunks), D)]
+    per_shard = [[] for _ in range(D)]
+    for chunks_r in rounds:
+        for d, stream in enumerate(count_shards(mesh, chunks_r, k,
+                                                nb_partitions)):
+            per_shard[d].append(fetch_stream(*stream))
+    merged = [st[0] if len(st) == 1 else _merge_streams(st)
+              for st in per_shard]
+    kmers = np.concatenate([m[0] for m in merged])
+    counts = np.concatenate([m[1] for m in merged])
+    return _regroup_by_partition(kmers, counts, nb_partitions)
+
+
 def count_sample(paths: list[str], k: int, nb_partitions: int,
                  device: torch.device):
     """Count one sample's distinct canonical k-mers across its read files:
-    (kmers sorted by (part, kmer), parts, counts), before hard-min."""
+    (kmers sorted by (part, kmer), parts, counts), before hard-min. With a
+    mesh (parallel.runtime) the sample's stream shards over it."""
     from kmdiff_tpu_torch.io.fasta import flat_codes
+    from kmdiff_tpu_torch.parallel.runtime import get_mesh
 
     all_codes = [c for c in (flat_codes(p) for p in paths) if len(c)]
+    mesh = get_mesh(device)
+    if mesh.size > 1:  # K-PART and the exchange are waste on one shard
+        return count_sample_device_mesh(all_codes, k, nb_partitions, mesh)
     return count_sample_device(all_codes, k, nb_partitions, device)
 
 

@@ -17,8 +17,12 @@ partition thread pool).
   (ops.lrt.run_filter) in BLOCK_ROWS tiles; a wide cohort's are scored on
   the host, in int64 sums and f64, as the JAX package scores them.
 * Chunks already on the device (the fused run's key-range chunks,
-  pipeline.fused) enter at PartitionProcessor.merge_device_chunk, where
-  the count-file path's chunks end too.
+  pipeline.fused) enter at PartitionProcessor.compute_chunk, where the
+  count-file path's chunks end too; push_chunk hands the survivors on.
+* On a mesh (parallel.runtime, --devices N) a partition's chunks hold up
+  to N x MAX_DEVICE_ROWS rows, and each chunk's N key ranges merge at
+  once, one a shard (parallel.merge_step); a prebuilt matrix's tiles are
+  filtered N at once, one a shard. One shard is a mesh of one.
 
 Either way the small survivor set is rescored in exact f64 on the host
 (core.model), which reproduces kmdiff's p-values.
@@ -106,6 +110,41 @@ def merge_sorted_streams(
 
 
 @dataclasses.dataclass
+class ChunkOut:
+    """One merged chunk on the host (PartitionProcessor.compute_chunk): its
+    distinct k-mers, the filter's survivors (kmers [H, nw] u64, exact int64
+    group sums), their count rows [H, S] int32 holding u32 (or None) and
+    the sampled geno rows [G, S] u8 (or None); phases: the seconds of its
+    build and device stages, which push_chunk adds to the partition's log
+    on the partition's thread (a mesh's parts are summed: shard-seconds)."""
+    n_distinct: int
+    hit_kmers: np.ndarray
+    s_c: np.ndarray
+    s_k: np.ndarray
+    rows: np.ndarray | None
+    geno: np.ndarray | None
+    phases: dict = dataclasses.field(default_factory=dict)
+
+    @staticmethod
+    def concat(outs: list[ChunkOut]) -> ChunkOut:
+        """Key-disjoint parts of one chunk, in ascending key order, as the
+        one chunk they make up (the distinct counts summed)."""
+        if len(outs) == 1:
+            return outs[0]
+
+        def cat(name):
+            parts = [getattr(o, name) for o in outs]
+            return None if parts[0] is None else np.concatenate(parts)
+
+        phases = {}
+        for o in outs:
+            for key, dt in o.phases.items():
+                phases[key] = phases.get(key, 0.0) + dt
+        return ChunkOut(sum(o.n_distinct for o in outs), cat("hit_kmers"),
+                        cat("s_c"), cat("s_k"), cat("rows"), cat("geno"), phases)
+
+
+@dataclasses.dataclass
 class PartitionResult:
     partition: int
     total_kmers: int
@@ -185,12 +224,21 @@ class PartitionProcessor:
             s_c = counts[:, : self.nb_controls].sum(axis=1, dtype=np.int64)
             s_k = counts[:, self.nb_controls :].sum(axis=1, dtype=np.int64)
         else:
+            from kmdiff_tpu_torch.parallel.runtime import get_mesh
+
             keep = np.zeros(len(counts), dtype=bool)
             s_c = np.zeros(len(counts), dtype=np.int64)
             s_k = np.zeros(len(counts), dtype=np.int64)
-            for lo in range(0, len(counts), BLOCK_ROWS):
-                hi = min(len(counts), lo + BLOCK_ROWS)
-                k, sc, sk = run_filter(self.params, counts[lo:hi], self.device)
+            # D tiles at once on a mesh, tile lo + d * BLOCK_ROWS on shard d
+            mesh = get_mesh(self.device)
+            tile = BLOCK_ROWS * mesh.size
+            for lo in range(0, len(counts), tile):
+                hi = min(len(counts), lo + tile)
+                tiles = [(a, min(hi, a + BLOCK_ROWS))
+                         for a in range(lo, hi, BLOCK_ROWS)]
+                parts = mesh.map(lambda d, dev: run_filter(
+                    self.params, counts[slice(*tiles[d])], dev), len(tiles))
+                k, sc, sk = (np.concatenate(x) for x in zip(*parts))
                 keep[lo:hi], s_c[lo:hi], s_k[lo:hi] = k, sc, sk
             idx = np.nonzero(keep)[0]
             s_c, s_k = s_c[idx], s_k[idx]
@@ -283,7 +331,7 @@ class PartitionProcessor:
 
     def new_sinks(self) -> tuple[list | None, list | None]:
         """One partition's empty (geno rows, --save-sk rows) sinks, None
-        for what is not wanted; merge_device_chunk fills them."""
+        for what is not wanted; push_chunk fills them."""
         return ([] if self.sampler is not None else None,
                 [] if self.save_matrix_path is not None else None)
 
@@ -383,17 +431,23 @@ class PartitionProcessor:
             counts_list = [ctrl[1], case[1]]
             nbc = 1
             self.phases.add("groupsum", time.perf_counter() - t0)
-        if sum(len(k) for k in kmers_list) > MAX_DEVICE_ROWS:
-            chunks = self._key_range_chunks(kmers_list, counts_list)
+        from kmdiff_tpu_torch.parallel.merge_step import merge_shards
+        from kmdiff_tpu_torch.parallel.runtime import get_mesh
+
+        mesh = get_mesh(self.device)
+        # a mesh merges D key ranges of a chunk at once, one a shard
+        budget = MAX_DEVICE_ROWS * mesh.size
+        if sum(len(k) for k in kmers_list) > budget:
+            chunks = self._key_range_chunks(kmers_list, counts_list, budget)
         else:
             chunks = [(kmers_list, counts_list)]
         # the chunks' geno and --save-sk rows go on once for the partition
         geno_sink, matrix_sink = self.new_sinks()
-        results = [
-            self._device_merge_chunk(partition, sub_k, sub_c, acc, nbc,
-                                     geno_sink, matrix_sink)
-            for sub_k, sub_c in chunks
-        ]
+        results = []
+        for sub_k, sub_c in chunks:
+            out = merge_shards(mesh, self, sub_k, sub_c, nbc)
+            results.append(self.push_chunk(partition, out, acc, geno_sink,
+                                           matrix_sink))
         self.flush_sinks(partition, geno_sink, matrix_sink, ksize,
                          len(kmers_list))
         acc.finish()
@@ -406,28 +460,28 @@ class PartitionProcessor:
         )
 
     @staticmethod
-    def _key_range_chunks(kmers_list, counts_list):
+    def _key_range_chunks(kmers_list, counts_list, budget: int):
         """Split a partition at common k-mer boundaries into chunks of
-        about 7/8 of MAX_DEVICE_ROWS, in key order. Quantile splitters are
+        about 7/8 of budget rows, in key order. Quantile splitters are
         approximate, so the chunk count doubles on overshoot (bounded
         retries; an over-budget chunk is still merged whole)."""
         from kmdiff_tpu_torch.ops.merge_dev import quantile_key_split
 
         N_real = sum(len(k) for k in kmers_list)
-        n_chunks = max(2, -(-N_real // max(1, (MAX_DEVICE_ROWS * 7) // 8)))
+        n_chunks = max(2, -(-N_real // max(1, (budget * 7) // 8)))
         _bounds, chunk_slices, _R = quantile_key_split(
-            kmers_list, n_chunks, lambda _r: MAX_DEVICE_ROWS,
+            kmers_list, n_chunks, lambda _r: budget,
             grow=True, attempts=4, best_effort=True,
         )
         return [([km[a:b] for (a, b), km in zip(per_sample, kmers_list)],
                  [ct[a:b] for (a, b), ct in zip(per_sample, counts_list)])
                 for per_sample in chunk_slices]
 
-    def _device_merge_chunk(self, partition, kmers_list, counts_list, acc,
-                            nbc, geno_sink, matrix_sink) -> PartitionResult:
+    def merge_host_chunk(self, kmers_list, counts_list, nbc,
+                         device: torch.device) -> ChunkOut:
         """Pack one chunk's host streams into keys and packed counts (the
-        full merge: raw counts and sample ids), ship them and merge them on
-        the device."""
+        full merge: raw counts and sample ids), ship them to `device` and
+        merge them there (compute_chunk)."""
         from kmdiff_tpu_torch.ops.merge_dev import (
             build_triples,
             build_triples_packed,
@@ -438,35 +492,30 @@ class PartitionProcessor:
         sample = None
         if self.full:
             keys, count, sample, _N = build_triples(kmers_list, counts_list)
-            sample = torch.from_numpy(sample).to(self.device)
+            sample = torch.from_numpy(sample).to(device)
         else:
             keys, count, _N = build_triples_packed(
                 kmers_list, counts_list, nbc, pack16=pack16_ok(counts_list)
             )
-        self.phases.add("build", time.perf_counter() - t0)
-        return self.merge_device_chunk(
-            partition, torch.from_numpy(keys).to(self.device),
-            torch.from_numpy(count).to(self.device), acc, sample=sample,
-            geno_sink=geno_sink, matrix_sink=matrix_sink,
-        )
+        build = time.perf_counter() - t0
+        out = self.compute_chunk(torch.from_numpy(keys).to(device),
+                                 torch.from_numpy(count).to(device), sample)
+        out.phases["build"] = build
+        return out
 
-    def merge_device_chunk(self, partition, keys: torch.Tensor,
-                           count: torch.Tensor, acc,
-                           sample: torch.Tensor | None = None,
-                           geno_sink: list | None = None,
-                           matrix_sink: list | None = None) -> PartitionResult:
-        """One chunk already on the device: keys [N] int64 (or [nw, N]) and packed
-        counts [N] (merge_dev.build_triples_packed's packing) -> merge and
-        filter there (merge_dev.merge_lrt), rescore the survivors in f64 on
-        the host, push them to acc; the caller finishes acc. The count+diff
-        merge and the fused run's merge both end here.
+    def compute_chunk(self, keys: torch.Tensor, count: torch.Tensor,
+                      sample: torch.Tensor | None = None) -> ChunkOut:
+        """keys [N] int64 (or [nw, N]) and packed counts [N]
+        (merge_dev.build_triples_packed's packing) on one device -> merge and
+        filter there (merge_dev.merge_lrt); the survivors, their sums and
+        the distinct count come back to the host.
 
         With sample ids [N] int16 (and raw counts: merge_dev.build_triples)
         the chunk merges through merge_dev.merge_lrt_full, whose group sums
-        are int64 (wide cohorts take this branch): survivors carry
-        their count rows when keep_counts, their --save-sk rows go to
-        matrix_sink and the sampled geno rows to geno_sink (new_sinks; the
-        caller hands them on with flush_sinks)."""
+        are int64 (wide cohorts take this branch), and the survivors' count
+        rows (want_rows) and the sampled geno rows (a sampler) come back
+        too. Touches no accumulator or sink, so the shards of a mesh run it
+        at once (parallel.merge_step)."""
         from kmdiff_tpu_torch.ops.merge_dev import (
             merge_lrt,
             merge_lrt_full,
@@ -490,19 +539,34 @@ class PartitionProcessor:
                 pca_seed=sampler.seed if sampler else 0,
             )
         hit_kmers, s_c, s_k = self._unpack_blob(hit_keys, hit_sums)
-        self.phases.add("device", time.perf_counter() - t0)
+        rows = None if rows is None else rows.cpu().numpy()
+        geno = None if geno is None else geno.cpu().numpy()
+        return ChunkOut(n_distinct, hit_kmers, s_c, s_k, rows, geno,
+                        {"device": time.perf_counter() - t0})
+
+    def push_chunk(self, partition, out: ChunkOut, acc,
+                   geno_sink: list | None = None,
+                   matrix_sink: list | None = None) -> PartitionResult:
+        """Rescore a chunk's survivors in f64 on the host and push them to
+        acc; the caller finishes acc. Survivors carry their count rows when
+        keep_counts, their --save-sk rows go to matrix_sink and the sampled
+        geno rows to geno_sink (new_sinks; the caller hands them on with
+        flush_sinks)."""
+        for key, dt in out.phases.items():
+            self.phases.add(key, dt)
+        hit_kmers, s_c, s_k = out.hit_kmers, out.s_c, out.s_k
         p, sg, mc, mk = self.model.process_sums(s_c, s_k)
         final = p <= self.threshold
         counts_rows = None
-        if rows is not None:
-            rows_i32 = rows.cpu().numpy()[final]
+        if out.rows is not None:
+            rows_i32 = out.rows[final]
             if self.keep_counts:
                 # u32 bit patterns in int32 slots: view back before widening
                 counts_rows = rows_i32.view(np.uint32).astype(np.float64)
             if matrix_sink is not None:
                 matrix_sink.append((hit_kmers[final], rows_i32))
-        if geno is not None:
-            geno_sink.append(geno.cpu().numpy())
+        if out.geno is not None:
+            geno_sink.append(out.geno)
         block = KmerSignBlock(
             hit_kmers[final],
             np.asarray(p[final], dtype=np.float64),
@@ -513,7 +577,7 @@ class PartitionProcessor:
         )
         acc.push_block(block)
         n_ctrl = int(np.sum(block.signs == int(Significance.CONTROL)))
-        return PartitionResult(partition, n_distinct, len(block), n_ctrl,
+        return PartitionResult(partition, out.n_distinct, len(block), n_ctrl,
                                len(block) - n_ctrl)
 
     def _log_phases(self, partition: int) -> None:

@@ -313,10 +313,10 @@ class PopStratCorrector:
         self.null_model: np.ndarray | None = None
         self.null_loglik: float = 0.0
 
-    def _tensor(self, a) -> torch.Tensor:
+    def _tensor(self, a, device: torch.device | None = None) -> torch.Tensor:
         # contiguous: numpy may give a new leading axis any stride
         return torch.as_tensor(np.asarray(a), dtype=default_dtype(),
-                               device=self.device).contiguous()
+                               device=device or self.device).contiguous()
 
     def set_Z(self, Z: np.ndarray) -> None:
         self.Z = np.asarray(Z, dtype=np.float64)
@@ -477,10 +477,16 @@ class PopStratCorrector:
         ratios = ratios / np.maximum(
             np.abs(ratios).max(axis=1, keepdims=True), 1e-300
         )
-        _w, _err, _it, ll, _stop = irls(
-            self._tensor(Xb[None]), self._tensor(ratios), self._tensor(self.Y),
-            self.max_iteration)
-        alt_ll = ll.cpu().numpy().astype(np.float64)
+        from kmdiff_tpu_torch.parallel.mesh import Mesh
+        from kmdiff_tpu_torch.parallel.runtime import get_mesh
+
+        mesh = get_mesh(self.device)
+        if self.device.type != "cuda":
+            # K-IRLS fits an item alone, so a split changes no bit on the
+            # card; the CPU twin's batched f32 products round by batch
+            # size, so on the CPU, where shards gain nothing, one fits all
+            mesh = Mesh(mesh.devices[:1])
+        alt_ll = self._alt_loglik(Xb, ratios, mesh)
         llr = -2.0 * (self.null_loglik - alt_ll)
         llr = np.where(
             (np.abs(llr) < self.epsilon) | (llr < 0.0) | ~np.isfinite(alt_ll),
@@ -488,6 +494,22 @@ class PopStratCorrector:
             llr,
         )
         block.pvalues[:] = chi2_sf1(llr)
+
+    def _alt_loglik(self, Xb: np.ndarray, ratios: np.ndarray,
+                    mesh) -> np.ndarray:
+        """The alt fits' log-likelihoods, [B] f64: one K-IRLS launch a shard
+        of the mesh (parallel.mesh.Mesh) over contiguous item ranges,
+        concatenated in order (kmdiff_tpu/pipeline/popstrat.py:520-540,
+        which shards the hits axis)."""
+        def fit(rows: np.ndarray, dev: torch.device) -> np.ndarray:
+            _w, _err, _it, ll, _stop = irls(
+                self._tensor(Xb[None], dev), self._tensor(rows, dev),
+                self._tensor(self.Y, dev), self.max_iteration)
+            return ll.cpu().numpy().astype(np.float64)
+
+        blocks = mesh.blocks(len(ratios))
+        return np.concatenate(mesh.map(
+            lambda d, dev: fit(ratios[slice(*blocks[d])], dev), len(blocks)))
 
 
 #: persisted null-fit artifact, read back by load_corrector

@@ -14,7 +14,8 @@ and the port's own.
   single process, and within the popstrat rule of the JAX package;
 - `run --distributed` equals the two-rank `count` + `diff`; `diff --model`
   over two ranks equals a single process's;
-- the CLI: `--distributed` runs, `--devices 2` and `--profile` still raise;
+- the CLI: `--distributed` runs, `--devices 2` beside it (item 7c) and
+  `--profile` raise, and `--devices N` alone runs the mesh;
 - tools/dist_walls.py's reading of a rank's log.
 
 Every rank has a wall-clock limit and the group a gloo timeout
@@ -421,9 +422,8 @@ def test_cli_distributed_flags_parse():
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--devices", "2"], "item 7b: the mesh programs"),
     (["--devices", "2", "--distributed", "127.0.0.1:1", "--num-processes", "2",
-      "--process-id", "0"], "item 7b"),
+      "--process-id", "0"], "item 7c: the mesh under --distributed"),
     (["--profile", "trace"], "item 10"),
 ])
 def test_cli_unported_flags_name_their_item(cohort, tmp_path, extra, item):
@@ -431,6 +431,23 @@ def test_cli_unported_flags_name_their_item(cohort, tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         torch_main(_diff_args(cohort, tmp_path, *extra), device="cpu")
     assert not D.is_distributed()
+
+
+@pytest.mark.parametrize("extra", [["--devices", "2"], ["--devices", "8"]])
+def test_cli_devices_without_distributed_runs_the_mesh(cohort, tmp_path, extra):
+    # without --distributed, --devices N is the mesh of N shards in one
+    # process (kmdiff_tpu_torch/parallel/): the output of --devices 1
+    run_dir = tmp_path / "rd"
+    assert torch_main(_count_args(cohort / "fof.txt", run_dir, 21),
+                      device="cpu") == 0
+    outs = []
+    for tag, flags in (("one", ["--devices", "1"]), ("mesh", extra)):
+        out = tmp_path / tag
+        assert torch_main(_diff_args(run_dir, out, *flags), device="cpu") == 0
+        outs.append({n: (out / n).read_bytes()
+                     for n in ("control_kmers.fasta", "case_kmers.fasta")})
+    assert not D.is_distributed()
+    assert outs[0] == outs[1] and any(outs[0].values())
 
 
 def test_log_breakdown_reads_a_rank_log():

@@ -152,8 +152,8 @@ def test_run_tiny_merge_chunks(fof, tmp_path, monkeypatch):
     plans = []
     real = fused.plan_key_chunks
 
-    def spy(streams, max_rows=None):
-        plans.append(real(streams, max_rows))
+    def spy(streams, max_rows=None, n_shards=1):
+        plans.append(real(streams, max_rows, n_shards))
         return plans[-1]
 
     monkeypatch.setattr(fused, "plan_key_chunks", spy)

@@ -121,8 +121,8 @@ def test_run_multichunk_samples_and_leading_word_chunks(fof, tmp_path, monkeypat
     plans = []
     real_plan = fused.plan_key_chunks
 
-    def plan(streams, max_rows=None):
-        out = real_plan(streams, max_rows)
+    def plan(streams, max_rows=None, n_shards=1):
+        out = real_plan(streams, max_rows, n_shards)
         plans.append(len(out[0]))
         return out
 

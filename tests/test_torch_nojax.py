@@ -6,8 +6,10 @@ the CPU, then diffs and runs it again with population-stratification
 correction and --save-sk, diffs it with the port's device plugin
 (process_block_torch), maps the case k-mers with `call` and prints `infos`,
 and no such import was even attempted (on a machine where JAX is installed,
-an attempt would load it). The same holds for each rank of a two-rank
-`--distributed` count and popstrat diff (parallel/). Neither the port's
+an attempt would load it), and then counts, popstrat-diffs and runs it on
+a two-shard mesh (`--devices 2`: parallel/mesh.py, runtime.py,
+count_step.py, merge_step.py, diff_step.py). The same holds for each rank
+of a two-rank `--distributed` count and popstrat diff (parallel/). Neither the port's
 sources (its example plugins and parallel/ among them) nor chip_smoke.py
 hold an import line of either."""
 
@@ -90,6 +92,32 @@ _SCRIPT = _BLOCK + textwrap.dedent("""
     with open(os.path.join(root, "calls.tsv")) as f:
         assert len(f.read().splitlines()) > 1
     assert main(["infos"], device="cpu") == 0
+    # the mesh runtime (parallel/), on two CPU shards: count, diff with
+    # popstrat and the fused run
+    for command in (
+            ["count", "--file", os.path.join(root, "sim", "fof.txt"),
+             "--run-dir", os.path.join(root, "run_m"), "--kmer-size", "21",
+             "--threads", "1"],
+            ["diff", "--km-run-dir", os.path.join(root, "run_m"), *pop,
+             "--output-dir", os.path.join(root, "out_mp")],
+            ["run", "--file", os.path.join(root, "sim", "fof.txt"),
+             "-d", os.path.join(root, "run_mf"), "-k", "21", "-1", "2",
+             "-2", "2", "-o", os.path.join(root, "out_mf"), "--threads", "1"]):
+        assert main([*command, "--devices", "2"], device="cpu") == 0
+    for name in ("control_kmers.fasta", "case_kmers.fasta"):
+        with open(os.path.join(root, "out", name), "rb") as a, \
+                open(os.path.join(root, "out_mf", name), "rb") as b:
+            assert a.read() == b.read(), name
+    # the sharded LR filter of count-matrix blocks (the matrix path's)
+    import numpy as np
+    import torch
+    from kmdiff_tpu_torch.parallel.diff_step import make_sharded_diff_step
+    from kmdiff_tpu_torch.parallel.mesh import make_mesh
+
+    step = make_sharded_diff_step(make_mesh(2, torch.device("cpu")), 1)
+    assert step(np.ones((4, 2), np.int32), 0.5, 0.5, 0.0)[4][0] == 4
+    for mod in ("mesh", "runtime", "count_step", "merge_step", "diff_step"):
+        assert f"kmdiff_tpu_torch.parallel.{mod}" in sys.modules, mod
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     assert not attempts, attempts
@@ -157,6 +185,8 @@ def test_port_sources_never_import_jax():
     sources = [*sorted(PORT.rglob("*.py")), PORT.parent / "chip_smoke.py"]
     assert len(sources) >= 12
     assert PORT / "examples" / "plugins" / "device_fold_change_model.py" in sources
-    assert PORT / "parallel" / "distributed.py" in sources
+    for name in ("distributed", "mesh", "runtime", "count_step", "merge_step",
+                 "diff_step"):
+        assert PORT / "parallel" / f"{name}.py" in sources, name
     for path in sources:
         assert not pattern.search(path.read_text()), path

@@ -127,11 +127,11 @@ def test_diff_matrix_run_dir_matches_jax(cohort, tmp_path):
 
 
 # --distributed runs (tests/test_torch_distributed.py); with an unported
-# flag beside it the command raises before any process group is opened
+# flag beside it (--devices above 1 is item 7c there) the command raises
+# before any process group is opened
 @pytest.mark.parametrize("extra", [
-    ["--devices", "2", "--num-processes", "2"],
     ["--profile", "trace", "--process-id", "0"],
-    ["--devices", "2"], ["--profile", "trace"],
+    ["--profile", "trace"],
     ["--distributed", "h:1", "--devices", "2"],
 ])
 def test_unported_diff_flags_raise(cohort, extra, tmp_path):
@@ -143,7 +143,6 @@ def test_unported_diff_flags_raise(cohort, extra, tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--profile", "trace"], ["--distributed", "h:1", "--profile", "trace"],
-    ["--devices", "2"],
 ])
 def test_unported_run_flags_raise(cohort, extra, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -151,6 +150,38 @@ def test_unported_run_flags_raise(cohort, extra, tmp_path):
                     str(tmp_path / "kc"), "-1", "3", "-2", "3", "-o",
                     str(tmp_path / "out"), *extra], device="cpu")
     assert not (tmp_path / "kc").exists()
+
+
+# --devices N runs the mesh (kmdiff_tpu_torch/parallel/, N CPU shards
+# here; --num-processes without a coordinator opens no group): every output
+# byte-identical to the same command line with --devices 1
+@pytest.mark.parametrize("command, extra", [
+    ("diff", ["--devices", "2", "--num-processes", "2"]),
+    ("diff", ["--devices", "2"]),
+    ("run", ["--devices", "2"]),
+])
+def test_devices_flags_match_one_device(cohort, command, extra, tmp_path):
+    from kmdiff_tpu_torch.parallel import runtime
+
+    if command == "diff":
+        argv = ["diff", "--km-run-dir", str(cohort / "jax_run"), "-1", "3",
+                "-2", "3", "-s", "0.5", "--cutoff", "1", "-c", "disabled"]
+    else:
+        argv = ["run", "--file", str(cohort / "sim" / "fof.txt"), "-k", "31",
+                "--nb-partitions", "4", "-1", "3", "-2", "3", "-s", "0.5",
+                "--cutoff", "1", "-c", "disabled"]
+    trees = []
+    for tag, flags in (("one", ["--devices", "1"]), ("mesh", extra)):
+        out = tmp_path / tag
+        rd = ["-d", str(tmp_path / f"kc_{tag}")] if command == "run" else []
+        assert torch_main([*argv, *rd, "-o", str(out), *flags],
+                          device="cpu") == 0
+        assert runtime.get_mesh(torch.device("cpu")).size == 1  # for the command only
+        trees.append(_files(out))
+        if command == "run":
+            trees.append(_files(tmp_path / f"kc_{tag}"))
+    assert trees[0]["case_kmers.fasta"] and trees[0]["control_kmers.fasta"]
+    assert trees[: len(trees) // 2] == trees[len(trees) // 2 :]
 
 
 def test_unported_commands_and_k_raise(tmp_path):

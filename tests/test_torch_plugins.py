@@ -406,7 +406,8 @@ def test_infos_on_the_cpu(capsys):
     if not torch.cuda.is_available():
         assert "cuda: not available" in out
     for word in ("kernels    :", "native lib :", "process_block_torch",
-                 "--distributed", "port queue item 7b", "item 10",
+                 "--distributed", "--devices N", "port queue item 7c",
+                 "item 10",
                  "KMDIFF_GROUP_MERGE"):
         assert word in out
 
