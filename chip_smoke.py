@@ -162,22 +162,38 @@ Run from the root of a checkout, with no arguments:
    to phase 3's loose diff). Each rank writes its wall and its launches
    (KMDIFF_RUN_REPORT); both must exit 0, and each must launch K-EXT,
    K-RUN, K-CMP and K-LRT over the four commands. Each rank's process wall
-   and command seconds are printed beside the single process's wall.
+   and command seconds are printed beside the single process's wall. Then
+   the mesh under the runtime: the four commands as two ranks of two
+   shards each (--devices 2: on one card a virtual mesh of the card in each
+   rank, through tools/dist_walls.py's spawn; with four cards or more rank
+   0 on cuda:0-1 and rank 1 on cuda:2-3), every output byte-identical to
+   phase 3's or 5's, each rank launching DIST_MESH_KERNELS on each of its
+   cards; and that pair's loose diff again under --profile DIR: both rank
+   traces, each with a kmd:<kernel> range and the CUDA activity of every
+   kernel its rank launched and aten ops on a mesh shard's thread
+   (check_trace), its wall beside the unprofiled one's.
 10. The mesh runtime (run_mesh) on phase 3's cohort at its full size:
    `count` (k = 31), the loose `diff`, popstrat `diff --save-sk`, the fused
    loose `run` (through cmd.run.main_run, which must take the fused path;
-   on two shards, two chunks a dispatch) and `count` at k = 63, first with
+   on two shards, two chunks a dispatch), and at k = 63 `count`, the loose
+   `diff`, popstrat `diff --save-sk` and the fused loose `run` (K-RUN's,
+   K-ASM's and K-GENO's multi-word forms on every shard), first with
    --devices 1 (each output byte-identical to phase 3's, 5's or 7's), then
    with --devices 2 on a virtual mesh of two shards on the first card
    (parallel.runtime.set_virtual), each output byte-identical to the
    one-shard run's, and, on a machine with two cards or more, with
    --devices min(4, cards) on real cards, which must launch K-EXT (both
-   forms), K-PART and K-GRAM on every card. Each command must launch its
+   forms), K-PART, K-GRAM and the multi-word K-RUN, K-ASM and K-GENO on
+   every card. Each command must launch its
    kernels (MESH_KERNELS; K-PART only on a mesh); each wall is printed
    beside the one-shard wall. Two shards on one card measure the overhead
-   of sharding, not a speedup. Phases 3-9 give their count, diff and run
+   of sharding, not a speedup. Phases 3-8 give their count, diff and run
    commands --devices 1 (ONE_SHARD; the CLI's default, 0, takes every
-   card), so phase 10 alone runs a mesh on any machine.
+   card), and phase 9 gives --devices 1 or 2 explicitly, so a mesh runs
+   only where phases 9 and 10 ask for one, on any machine.
+11. `warmup -1 10 -2 10 --pop` (run_warmup) on the built libraries: it
+   must launch every kernel of the main path and of popstrat
+   (WARMUP_KERNELS); each group's seconds are printed.
 
 Then it prints every kernel's launches on each path, and fails if any
 module of JAX or of the JAX package (kmdiff_tpu) was loaded.
@@ -216,9 +232,9 @@ torch.unique_consecutive(dim=0)); int_gram's row is [2^20, 20] with
 device_ms and device_ops, carries [2^18, 200] as s200_* and phase 5's
 row-sum groups as groups_* (ms, plain_ms, bound_ms, bound_by, device_ms,
 device_ops a call, shapes); its library_ms is torch._int_mm; every row
-carries dist_launches, its launches on phase 9 (both ranks, four commands),
-and mesh_launches, its launches on phase 10's two virtual shards (five
-commands); partition_ids' row (K-PART) is its one-word D = 2 form, with
+carries dist_launches, its launches on phase 9 (both ranks, four commands,
+one shard a rank), mesh_launches, its launches on phase 10's two virtual
+shards (eight commands), and warmup_launches, phase 11's; partition_ids' row (K-PART) is its one-word D = 2 form, with
 device_ms and its other shapes under "shapes", and its launches are phase
 10's (it runs on the mesh path only);
 the last line of standard output is the result:
@@ -229,6 +245,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1541,9 +1558,9 @@ def _read_fasta(path):
     return [(lines[i][1:], lines[i + 1]) for i in range(0, len(lines) - 1, 2)]
 
 
-#: phases 3-9 drive the single-device main path: the CLI's --devices
+#: phases 3-8 drive the single-device main path: the CLI's --devices
 #: defaults to every card of the machine, so their count, diff and run
-#: commands take --devices 1, and phase 10 alone runs a mesh
+#: commands take --devices 1; phases 9 and 10 set their own
 ONE_SHARD = ("--devices", "1")
 
 
@@ -2670,15 +2687,17 @@ def _same_tree(a: str, b: str, subs) -> int:
     return n
 
 
-def _dist_commands(fof: str, world: int) -> tuple[dict, str, dict]:
-    """Phase 9's four command lines for `world` processes, their run
-    directory and their output directories."""
+def _dist_commands(fof: str, tag: str, devices: int = 1,
+                   run_dir: str | None = None) -> tuple[dict, str, dict]:
+    """Phase 9's four command lines with --devices `devices`, their run
+    directory (by default WORK/dist<tag>_run) and their output directories
+    (WORK/dist<tag>_<command>)."""
     loose = ["-1", str(N_CONTROLS), "-2", str(N_CASES), "--threads", "4", "-s",
              "0.001", "--cutoff", "1", "-c", "disabled"]
     count = ["--file", fof, "--kmer-size", "31", "--hard-min", "1",
              "--nb-partitions", "4"]
-    run_dir = os.path.join(WORK, f"dist{world}_run")
-    outs = {name: os.path.join(WORK, f"dist{world}_{name}")
+    run_dir = run_dir or os.path.join(WORK, f"dist{tag}_run")
+    outs = {name: os.path.join(WORK, f"dist{tag}_{name}")
             for name in ("diff", "popstrat", "run")}
     commands = {
         "count": ["count", *count, "--threads", "4", "--run-dir", run_dir],
@@ -2690,8 +2709,8 @@ def _dist_commands(fof: str, world: int) -> tuple[dict, str, dict]:
         "run": ["run", *count, *loose, "--run-dir", f"{run_dir}_of_run",
                 "--output-dir", outs["run"]],
     }
-    return ({name: _one_shard(argv) for name, argv in commands.items()},
-            run_dir, outs)
+    return ({name: [*argv, "--devices", str(devices)]
+             for name, argv in commands.items()}, run_dir, outs)
 
 
 def _check_dist_output(label: str, phase3, run_dir: str, outs: dict) -> str:
@@ -2725,6 +2744,65 @@ def _check_dist_output(label: str, phase3, run_dir: str, outs: dict) -> str:
     return "FASTA byte-identical to phase 3's loose diff"
 
 
+#: the kernels each rank of phase 9's two-shard meshes must launch on each
+#: of its cards, a command at a time (`run --distributed` takes count +
+#: diff; the primary alone fits the PCA, so K-GRAM is required of it alone)
+DIST_MESH_KERNELS = {
+    "count": ("canonical_kmers", "partition_ids", "run_bounds"),
+    "diff": ("run_bounds", "compact", "lrt_filter"),
+    "popstrat": ("run_bounds", "compact", "run_rows", "geno_sample", "irls",
+                 "lrt_filter"),
+    "run": ("canonical_kmers", "partition_ids", "run_bounds", "compact",
+            "lrt_filter"),
+}
+
+
+def kernel_symbols() -> dict:
+    """Each kernel source's __global__ function names, {source: [name]}:
+    what a trace's CUDA activity calls its kernels."""
+    from kmdiff_tpu_torch import kernels
+
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\s*"
+                         r"\([^)]*\)\s*)?(\w+)\s*\(")
+    out = {}
+    for path in kernels.sources():
+        if path.endswith(".cu"):
+            with open(path) as f:
+                out[os.path.basename(path)[:-3]] = pattern.findall(f.read())
+    return out
+
+
+def check_trace(path: str, launches: dict) -> str:
+    """Hold a --profile Chrome trace of one process to what it launched:
+    for every kernel launched, a kmd:<kernel> range and CUDA activity of
+    one of its source's kernels; aten ops on a mesh shard's thread, inside
+    a kmd:shard1 range. Returns a summary."""
+    from kmdiff_tpu_torch import kernels
+
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    names = {e["name"] for e in events}
+    gpu = [e for e in events if e.get("cat") == "kernel"]
+    symbols = kernel_symbols()
+    for name, n in launches.items():
+        if not n:
+            continue
+        if f"kmd:{name}" not in names:
+            raise AssertionError(f"{path}: no kmd:{name} range ({n} launches)")
+        syms = symbols[kernels.MULTIWORD.get(name, name)]
+        if not any(sym in e["name"] for e in gpu for sym in syms):
+            raise AssertionError(f"{path}: no CUDA activity of {name} {syms}")
+    shard = [e for e in events if e["name"] == "kmd:shard1"]
+    inside = [e for s in shard for e in events if e["tid"] == s["tid"]
+              and e["name"].startswith("aten::")
+              and s["ts"] <= e["ts"] <= s["ts"] + s["dur"]]
+    if not inside:
+        raise AssertionError(f"{path}: no aten op of a mesh shard's thread")
+    busy = sum(e["dur"] for e in gpu) / 1e3
+    return (f"{len(events)} events, {len(gpu)} CUDA kernels ({busy:.1f} ms "
+            f"summed), {len(inside)} aten ops in {len(shard)} kmd:shard1 ranges")
+
+
 def run_distributed(phase3, pop_walls) -> dict:
     """Phase 9: the multi-process runtime, two ranks on one card. Runs
     `count`, the loose `diff`, popstrat `diff --save-sk` and `run` (loose)
@@ -2732,8 +2810,17 @@ def run_distributed(phase3, pop_walls) -> dict:
     --distributed ranks, and holds every output against phases 3 and 5;
     prints each process's wall, command seconds and log breakdown beside
     the in-process walls of phases 3 and 5 and its launches, and requires
-    both ranks to launch DIST_KERNELS. Returns the two ranks' launches
-    summed over their commands."""
+    both ranks to launch DIST_KERNELS. Then the mesh under the runtime: the
+    four commands as two ranks of two shards each (--devices 2; a virtual
+    mesh of each rank's card, or with four cards or more rank 0 on cuda:0-1
+    and rank 1 on cuda:2-3), each output held against phases 3 and 5, each
+    rank's launches on each of its cards against DIST_MESH_KERNELS; and the
+    loose diff of two such ranks again under --profile, whose two traces
+    check_trace holds to each rank's launches, and whose wall is printed
+    beside the unprofiled one's. Returns the two ranks' launches (one
+    shard a rank) summed over their commands."""
+    import torch
+
     from kmdiff_tpu_torch.tools.dist_walls import log_breakdown, spawn
 
     def describe(rep: dict) -> str:
@@ -2748,8 +2835,14 @@ def run_distributed(phase3, pop_walls) -> dict:
         "run": (phase3["count"] + pop_walls["loose diff"],
                 "phase 3's count + phase 5's loose diff"),
     }
-    plans = {w: _dist_commands(phase3["fof"], w) for w in (1, 2)}
+    plans = {w: _dist_commands(phase3["fof"], str(w)) for w in (1, 2)}
     per_rank = [dict.fromkeys(phase3["launches"], 0) for _ in range(2)]
+    real = torch.cuda.device_count() >= 4
+    cards, visible = ([[0, 1], [2, 3]], "0,1,2,3") if real else ([[0], [0]], None)
+    where = ("rank 0 on cuda:0-1, rank 1 on cuda:2-3" if real else
+             "a virtual mesh of two shards on the card in each rank")
+    mesh_plan = _dist_commands(phase3["fof"], "2x2", devices=2)
+    mesh_walls = {}
     for label in plans[1][0]:
         reports = {}
         for world, (commands, run_dir, outs) in plans.items():
@@ -2769,8 +2862,49 @@ def run_distributed(phase3, pop_walls) -> dict:
               + "; ".join(f"rank {r} " + str({k: n for k, n in rep["launches"].items()
                                               if n})
                           for r, rep in enumerate(reports[2])))
+        commands, run_dir, outs = mesh_plan
+        reports = spawn(commands[label], 2, os.path.join(WORK, f"dist_{label}_2x2"),
+                        virtual=not real, cards=visible)
+        what = _check_dist_output(label, phase3, run_dir, outs)
+        for r, rep in enumerate(reports):
+            need = DIST_MESH_KERNELS[label] + (
+                ("int_gram",) if label == "popstrat" and r == 0 else ())
+            for d in cards[r]:
+                got = rep["launches_by_device"].get(str(d), {})
+                missing = [k for k in need if not got.get(k)]
+                if missing:
+                    raise AssertionError(f"phase 9 two ranks x two shards {label}: "
+                                         f"rank {r} never launched {missing} on "
+                                         f"cuda:{d}")
+        mesh_walls[label] = max(rep["seconds"] for rep in reports)
+        print(f"[distributed {label}] two ranks x two shards ({where}): "
+              + ", ".join(f"rank {r} {describe(rep)}" for r, rep in enumerate(reports))
+              + f"; {what} (both); launches by card (above 0) "
+              + "; ".join(f"rank {r} " + str({
+                  d: {k: n for k, n in by.items() if n}
+                  for d, by in rep["launches_by_device"].items()})
+                  for r, rep in enumerate(reports)))
     for r, launches in enumerate(per_rank):
         require_launches(f"distributed rank {r}", launches, DIST_KERNELS)
+
+    # the loose diff of two ranks x two shards under --profile
+    prof = os.path.join(WORK, "dist_profile")
+    commands, run_dir, outs = _dist_commands(phase3["fof"], "2x2p", devices=2,
+                                             run_dir=mesh_plan[1])
+    reports = spawn([*commands["diff"], "--profile", prof], 2,
+                    os.path.join(WORK, "dist_diff_2x2p"), virtual=not real,
+                    cards=visible)
+    what = _check_dist_output("diff", phase3, run_dir, outs)
+    traces = sorted(os.listdir(prof))
+    if sorted(t.split(".")[0] for t in traces) != ["rank0", "rank1"]:
+        raise AssertionError(f"phase 9 --profile wrote {traces}")
+    checked = [check_trace(os.path.join(prof, t), rep["launches"])
+               for t, rep in zip(traces, reports)]
+    wall = max(rep["seconds"] for rep in reports)
+    print(f"[distributed diff --profile] two ranks x two shards ({where}): "
+          f"{wall:.3f} s in the command (the slower rank) against "
+          f"{mesh_walls['diff']:.3f} s unprofiled ({wall / mesh_walls['diff']:.2f}x); "
+          f"{what}; " + "; ".join(f"{t}: {c}" for t, c in zip(traces, checked)))
     return {f"distributed rank {r}": launches for r, launches in enumerate(per_rank)}
 
 
@@ -2782,14 +2916,20 @@ MESH_KERNELS = {
                       "int_gram", "irls", "lrt_filter"),
     "run": ("canonical_kmers", "run_bounds", "assemble_chunk", "lrt_filter"),
     "count k=63": ("canonical_kmers_mw", "partition_ids", "run_bounds_mw"),
+    "loose diff k=63": ("run_bounds_mw", "compact", "lrt_filter"),
+    "popstrat diff k=63": ("run_bounds_mw", "compact", "run_rows",
+                           "geno_sample_mw", "int_gram", "irls", "lrt_filter"),
+    "run k=63": ("canonical_kmers_mw", "run_bounds_mw", "assemble_chunk_mw",
+                 "lrt_filter"),
 }
-#: the kernels the real-card section must launch on every card
+#: the kernels the real-card section must launch on every card (the
+#: multi-word merges' among them: a k > 32 merge on every card)
 EVERY_CARD = ("canonical_kmers", "canonical_kmers_mw", "partition_ids",
-              "int_gram")
+              "int_gram", "run_bounds_mw", "assemble_chunk_mw", "geno_sample_mw")
 
 
 def _mesh_commands(fof: str, tag: str) -> tuple[dict, dict]:
-    """Phase 10's five command lines for outputs tagged `tag`, and each
+    """Phase 10's eight command lines for outputs tagged `tag`, and each
     command's output directory."""
     loose = ["-1", str(N_CONTROLS), "-2", str(N_CASES), "--threads", "4", "-s",
              "0.001", "--cutoff", "1", "-c", "disabled"]
@@ -2809,6 +2949,13 @@ def _mesh_commands(fof: str, tag: str) -> tuple[dict, dict]:
                 f"{outs['run']}_rd", "--output-dir", outs["run"]],
         "count k=63": ["count", *count, "--kmer-size", "63", "--run-dir",
                        outs["count k=63"]],
+        "loose diff k=63": ["diff", "--km-run-dir", outs["count k=63"], *loose,
+                            "--output-dir", outs["loose diff k=63"]],
+        "popstrat diff k=63": ["diff", "--km-run-dir", outs["count k=63"], *loose,
+                               "--pop-correction", "--save-sk", "--output-dir",
+                               outs["popstrat diff k=63"]],
+        "run k=63": ["run", *count, "--kmer-size", "63", *loose, "--run-dir",
+                     f"{outs['run k=63']}_rd", "--output-dir", outs["run k=63"]],
     }, outs
 
 
@@ -2843,7 +2990,7 @@ def _check_mesh_output(label: str, out: str, ref: str) -> str:
         return f"{n} files byte-identical"
     names = list(fasta)
     n_mat = 0
-    if label == "popstrat diff":
+    if label.startswith("popstrat diff"):
         names.append(os.path.join("popstrat", "pcs.evec"))
         n_mat = _same_files(label, out, ref, [os.path.join(
             "positive_kmer_matrix", "matrices")])
@@ -2882,8 +3029,9 @@ def _drive(argv, dev) -> float:
 
 def run_mesh(dev, fof: str, refs: dict | None) -> dict:
     """Phase 10: the mesh runtime on phase 3's cohort at its full size. The
-    five commands (count, the loose diff, popstrat diff --save-sk, the
-    fused loose run, count at k = 63) run with --devices 1, then on a
+    eight commands (count, the loose diff, popstrat diff --save-sk, the
+    fused loose run, and at k = 63 count, the loose diff, popstrat diff
+    --save-sk and the fused loose run) run with --devices 1, then on a
     virtual mesh of two shards on the first card (parallel.runtime's
     switch), then, when the machine has two cards or more, on min(4,
     cards) real cards. Every mesh output must be byte-identical to the
@@ -2891,7 +3039,7 @@ def run_mesh(dev, fof: str, refs: dict | None) -> dict:
     7's outputs) where given; each command must launch MESH_KERNELS, and
     the real-card section EVERY_CARD on every card. Prints each command's
     wall beside the one-shard wall. Returns the launches of the virtual
-    two-shard run (all five commands)."""
+    two-shard run (all eight commands)."""
     import torch
 
     from kmdiff_tpu_torch import kernels
@@ -2957,6 +3105,32 @@ def run_mesh(dev, fof: str, refs: dict | None) -> dict:
           + (f"{min(4, n_cards)} of {n_cards}" if n_cards >= 2
              else "not run (one card on this machine)"))
     return mesh_launches
+
+
+#: the kernels phase 11's warmup must launch: every kernel of the main path
+#: (count + diff and the fused run, K-WRUN's two-chunk dedup among them) and
+#: of popstrat
+WARMUP_KERNELS = (*RUN_KERNELS, "weighted_runs", *POP_KERNELS)
+
+
+def run_warmup(dev) -> dict:
+    """Phase 11: `warmup -1 10 -2 10 --pop` (cmd.warmup.main_warmup, what
+    the CLI runs) on the built libraries; it must launch WARMUP_KERNELS.
+    Prints each group's seconds; returns its launches."""
+    from kmdiff_tpu_torch import kernels
+    from kmdiff_tpu_torch.cmd.warmup import main_warmup
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    seconds = main_warmup(N_CONTROLS, N_CASES, 31, dev, pop=True)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    require_launches("warmup", launches, WARMUP_KERNELS)
+    print(f"[warmup -1 {N_CONTROLS} -2 {N_CASES} --pop] {wall:.3f} s wall; "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items())
+          + " (builds 0 when built); launches (above 0) "
+          + str({k: n for k, n in launches.items() if n}))
+    return launches
 
 
 def load_native() -> None:
@@ -3030,7 +3204,11 @@ def main() -> int:
             "popstrat diff": os.path.join(WORK, "pop_gpu"),
             "run": os.path.join(WORK, "loose_gpu"),
             "count k=63": os.path.join(WORK, "run_k63"),
+            "loose diff k=63": os.path.join(WORK, "k63_loose_gpu"),
+            "popstrat diff k=63": os.path.join(WORK, "pop_k63_gpu"),
+            "run k=63": os.path.join(WORK, "k63_loose_gpu"),
         })
+        warmup_launches = run_warmup(dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     paths = {"count+diff": phase3["launches"], "run (a)": fused_launches["a"],
@@ -3039,7 +3217,7 @@ def main() -> int:
              "wide popstrat diff": wide_launches["b"],
              "forced-wide run": wide_launches["c"], **mw_launches,
              **plugin_launches, **dist_launches,
-             "mesh (2 virtual shards)": mesh_launches}
+             "mesh (2 virtual shards)": mesh_launches, "warmup": warmup_launches}
     for name in timings:
         print(f"[launches] {name}: " + ", ".join(
             f"{path} {launches[name]}" for path, launches in paths.items()))
@@ -3086,8 +3264,10 @@ def main() -> int:
             rows[-1]["wide_launches"] = wide_launches["a"][name]
         # phase 9: the launches of both ranks over their four commands
         rows[-1]["dist_launches"] = sum(d[name] for d in dist_launches.values())
-        # phase 10: the launches of the two virtual shards' five commands
+        # phase 10: the launches of the two virtual shards' eight commands
         rows[-1]["mesh_launches"] = mesh_launches[name]
+        # phase 11: warmup's
+        rows[-1]["warmup_launches"] = warmup_launches[name]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,10 @@
 
 With KMDIFF_RUN_REPORT=PATH the process also writes one JSON object to PATH
 when the command succeeds: its start (the clock's "start", seconds since
-the epoch), its wall seconds ("seconds") and the kernel launches it made
-("launches", kernels.launch_counts()). Launch counts are per process and
+the epoch), its wall seconds ("seconds"), the kernel launches it made
+("launches", kernels.launch_counts()) and those on each card
+("launches_by_device", kernels.launch_counts_by_device(), keyed by the
+card's index as a string). Launch counts are per process and
 summed over its threads (a ``--devices N`` mesh launches from a thread a
 shard), so this is how a caller reads what each rank of a
 ``--distributed`` run launched.
@@ -24,5 +26,6 @@ if report:
 
     with open(report, "w") as f:
         json.dump({"start": start, "seconds": time.perf_counter() - t0,
-                   "launches": kernels.launch_counts()}, f)
+                   "launches": kernels.launch_counts(),
+                   "launches_by_device": kernels.launch_counts_by_device()}, f)
 sys.exit(rc)

@@ -3,17 +3,18 @@
 build_parser has every subcommand, flag, default and dest of the JAX
 package's (kmdiff_tpu/cli.py, after the reference's src/cli.cpp:23-369), so
 a command line runs unchanged on either package. ``count``, ``diff``, ``run``
-(with ``--model`` plugins, over a mesh of shards with ``--devices``, and
-over several processes with ``--distributed``), ``popsim``, ``call`` and
-``infos`` run on the port; ``warmup``, and every flag of a path not ported
-yet (``--devices`` above 1 with ``--distributed``, ``--profile``), raises
-NotImplementedError naming its item in ROADMAP.md's port queue.
+(with ``--model`` plugins, over a mesh of shards with ``--devices``, over
+several processes with ``--distributed``, and over a mesh in each of
+several processes with both), ``popsim``, ``call``, ``infos`` and
+``warmup`` run on the port, each under ``--profile DIR`` too (a
+torch.profiler trace, kmdiff_tpu_torch.profiling). What the port does not
+do yet is ROADMAP.md's port queue item 1: ``run`` ignores
+KMDIFF_GROUP_MERGE.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 import torch
@@ -60,8 +61,8 @@ def _add_common(p: argparse.ArgumentParser):
     )
     p.add_argument(
         "--profile", default="", metavar="DIR",
-        help="capture a profiler trace of the run into DIR "
-        "(not ported yet: ROADMAP.md port queue item 10).",
+        help="capture a profiler trace of the run into DIR (a torch.profiler "
+        "Chrome trace; one file a rank under --distributed).",
     )
 
 
@@ -274,8 +275,9 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(lp)
 
     # ---- warmup --------------------------------------------------------------
-    wp = sub.add_parser("warmup", help="pre-compile device kernels for a "
-                        "cohort config (populates the persistent XLA cache).")
+    wp = sub.add_parser("warmup", help="build the kernels and the native "
+                        "library and launch every kernel once for a cohort "
+                        "config.")
     wp.add_argument("-1", "--nb-controls", type=int, required=True)
     wp.add_argument("-2", "--nb-cases", type=int, required=True)
     wp.add_argument("-k", "--kmer-size", type=int, default=31)
@@ -289,28 +291,6 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(ip)
 
     return ap
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to kmdiff_tpu_torch yet "
-        f"(ROADMAP.md port queue {item})"
-    )
-
-
-def _reject_unported(args) -> None:
-    if args.command == "warmup":
-        raise NotImplementedError(
-            "'warmup' only fills the XLA compile cache; the port compiles "
-            "nothing ahead of time (ROADMAP.md: not to port)"
-        )
-    if args.devices > 1 and (args.distributed
-                             or os.environ.get("KMDIFF_COORDINATOR")):
-        from kmdiff_tpu_torch.parallel.runtime import mesh_under_distributed
-
-        raise mesh_under_distributed(args.devices)
-    if args.profile:
-        raise _unported("--profile", "item 10: a torch.profiler trace")
 
 
 def count_options(args):
@@ -370,10 +350,8 @@ def diff_options(args):
 
 
 def parse_args(argv: list[str] | None = None):
-    """Parse a command line and refuse what the port has not ported."""
-    args = build_parser().parse_args(argv)
-    _reject_unported(args)
-    return args
+    """Parse a command line."""
+    return build_parser().parse_args(argv)
 
 
 def main(argv: list[str] | None = None,
@@ -385,20 +363,27 @@ def main(argv: list[str] | None = None,
     from kmdiff_tpu_torch.utils.signals import init_signal_handlers
 
     init_signal_handlers()
+    from kmdiff_tpu_torch import profiling
+
     if args.command not in ("count", "diff", "run"):
-        return _dispatch(args, dev)
+        with profiling.trace(args.profile, dev):
+            return _dispatch(args, dev)
 
     from kmdiff_tpu_torch.parallel import distributed, runtime
 
     # --distributed, or KMDIFF_COORDINATOR and friends: every rank runs
-    # this command on its own device (parallel.distributed)
-    distributed.init_distributed(
+    # this command on its own cards (parallel.distributed), a mesh of them
+    # with --devices N
+    on = distributed.init_distributed(
         coordinator=args.distributed or None,
         num_processes=args.num_processes or None,
         process_id=args.process_id if args.process_id >= 0 else None,
     )
     try:
-        rc = _dispatch(args, distributed.rank_device(dev))
+        rank_dev = distributed.rank_device(dev, args.devices)
+        worker = f"rank{distributed.rank()}" if on else "process"
+        with profiling.trace(args.profile, rank_dev, worker):
+            rc = _dispatch(args, rank_dev)
         # every rank leaves the command together: no rank starts a next
         # command while the primary still writes this one's output
         distributed.barrier("command_done")
@@ -410,6 +395,13 @@ def main(argv: list[str] | None = None,
 
 
 def _dispatch(args, dev: torch.device) -> int:
+    if args.command == "warmup":
+        from kmdiff_tpu_torch.cmd.warmup import main_warmup
+
+        main_warmup(args.nb_controls, args.nb_cases, args.kmer_size, dev,
+                    pop=args.pop, npc=args.n_pc)
+        return 0
+
     if args.command == "infos":
         from kmdiff_tpu_torch.cmd.infos import main_infos
 

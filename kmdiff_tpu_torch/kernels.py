@@ -56,6 +56,8 @@ import time
 
 import torch
 
+from kmdiff_tpu_torch import profiling
+
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kmdiff_tpu_torch")
@@ -261,13 +263,18 @@ def lib():
 
 def launch(kernel: str, entry: str, *args) -> None:
     """Call C entry point `entry` of `kernel` on the current stream, raise
-    on a CUDA error, and count one launch of `kernel`."""
+    on a CUDA error, and count one launch of `kernel`. Under --profile the
+    call is a ``kmd:<kernel>`` range of the trace (profiling.span)."""
     handle = lib()
     # the raw handle: torch.cuda.current_stream() builds a Stream object,
     # which costs more host time than the launch itself
     device = torch.cuda.current_device()
     stream = torch._C._cuda_getCurrentRawStream(device)
-    rc = getattr(handle, entry)(*args, stream)
+    if profiling.active:
+        with profiling.span(f"kmd:{kernel}"):
+            rc = getattr(handle, entry)(*args, stream)
+    else:
+        rc = getattr(handle, entry)(*args, stream)
     if rc != 0:
         msg = handle.kmd_error_string(rc).decode()
         raise RuntimeError(f"{entry}: CUDA error {rc} ({msg})")

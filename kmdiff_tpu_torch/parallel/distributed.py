@@ -17,7 +17,11 @@ single-device path on its own device:
 The process group runs on **gloo**, on the host: it carries nothing but
 small CPU tensors, and NCCL refuses two ranks on one GPU, which is how one
 card runs two ranks. Each rank's device is ``rank_device``: a CUDA request
-takes ``cuda:(rank mod device count)``, a CPU request stays on the CPU.
+takes the first of the rank's cards (``rank_cards``: ``cuda:(rank mod
+device count)`` for one shard a rank, the N cards from ``cuda:(rank N mod
+device count)`` on for a mesh of N shards, ``--devices N``), a CPU request
+stays on the CPU. Every rank checks every rank's cards before the command
+runs, so a machine with too few cards fails on all ranks at once.
 
 The group is opened with an explicit timeout (``init_distributed``,
 ``KMDIFF_DIST_TIMEOUT`` seconds, default ``DEFAULT_TIMEOUT``): a rank that
@@ -108,12 +112,36 @@ def owned_partitions(n_partitions: int) -> list[int]:
     return list(range(rank(), n_partitions, world_size()))
 
 
-def rank_device(device: torch.device) -> torch.device:
-    """This rank's device for a requested one: cuda:(rank mod the card
-    count), made the current device, for a CUDA request; the CPU stays."""
+def rank_cards(r: int, shards: int, cards: int,
+               virtual: bool = False) -> list[int]:
+    """The card indices of rank r's mesh of `shards` shards on a machine of
+    `cards` cards: cuda:(r mod cards) for one shard (0 or 1) or a virtual
+    mesh (the card repeated), else the `shards` cards from cuda:(r shards
+    mod cards) on. ValueError when they run past the last card."""
+    width = 1 if virtual or shards <= 1 else shards
+    first = r * width % cards
+    if first + width > cards:
+        raise ValueError(
+            f"--devices {shards} under --distributed: rank {r} needs cuda:"
+            f"{first}-{first + width - 1}, the machine has {cards} CUDA "
+            "device(s) (a virtual mesh on one card is "
+            "parallel.runtime.set_virtual)")
+    return list(range(first, first + width))
+
+
+def rank_device(device: torch.device, shards: int = 1) -> torch.device:
+    """This rank's device for a requested one and its shard budget
+    (--devices): the first of its cards (rank_cards), made the current
+    device, for a CUDA request, after checking every rank's cards; the CPU
+    stays."""
     if device.type != "cuda":
         return device
-    dev = torch.device("cuda", rank() % torch.cuda.device_count())
+    from kmdiff_tpu_torch.parallel.runtime import is_virtual
+
+    cards, virtual = torch.cuda.device_count(), is_virtual()
+    for r in range(world_size()):
+        rank_cards(r, shards, cards, virtual)
+    dev = torch.device("cuda", rank_cards(rank(), shards, cards, virtual)[0])
     torch.cuda.set_device(dev)
     return dev
 

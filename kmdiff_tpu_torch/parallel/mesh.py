@@ -22,6 +22,8 @@ import dataclasses
 
 import torch
 
+from kmdiff_tpu_torch import profiling
+
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -44,14 +46,15 @@ class Mesh:
     def map(self, fn, n: int | None = None) -> list:
         """fn(d, device) for shards d < n (every shard by default), each on
         a thread of its own under its device; the results in shard order.
-        The first shard's exception is raised once every shard ended."""
+        The first shard's exception is raised once every shard ended. Under
+        --profile each shard's call is a ``kmd:shard<d>`` range."""
         n = self.size if n is None else n
 
         def one(d: int):
             dev = self.devices[d]
             ctx = (torch.cuda.device(dev) if dev.type == "cuda"
                    else contextlib.nullcontext())
-            with ctx:
+            with ctx, profiling.span(f"kmd:shard{d}"):
                 return fn(d, dev)
 
         if n <= 1:

@@ -14,9 +14,12 @@
     chip_smoke.py. It is never a CLI flag, and nothing falls back to it
     when cards are missing.
 
-Under the multi-process runtime (parallel.distributed) each rank runs on
-its one card: ``--devices 0`` means that card, and more than one shard is
-ROADMAP.md port-queue item 7c.
+Under the multi-process runtime (parallel.distributed) each rank builds
+its mesh from its own cards, as each JAX process does from its local
+devices: rank r's N shards are the N cards from
+``distributed.rank_cards(r, N, cards)[0]`` on (cuda:(r N mod cards) ...,
+the rank's command device first), or that one card N times in a virtual
+mesh. ``--devices 0`` there keeps one card a rank.
 """
 
 from __future__ import annotations
@@ -53,14 +56,13 @@ def set_virtual(on: bool) -> None:
         _meshes.clear()
 
 
-def mesh_under_distributed(n: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"--devices {n} under --distributed is not ported to kmdiff_tpu_torch "
-        "yet (ROADMAP.md port queue item 7c: the mesh under --distributed)")
+def is_virtual() -> bool:
+    return _virtual
 
 
 def get_mesh(device: torch.device) -> Mesh:
-    """The mesh of a command on `device`, built once a configuration;
+    """The mesh of a command on `device` (under --distributed the rank's
+    device, parallel.distributed.rank_device), built once a configuration;
     Mesh((device,)) for one shard."""
     from kmdiff_tpu_torch.parallel.distributed import is_distributed
 
@@ -68,8 +70,6 @@ def get_mesh(device: torch.device) -> Mesh:
     env = os.environ.get("KMDIFF_DEVICES")
     if n is None and env:
         n = int(env)
-    if n is not None and n > 1 and is_distributed():
-        raise mesh_under_distributed(n)
     if n == 0 and not is_distributed():
         n = (torch.cuda.device_count() - (device.index or 0)
              if device.type == "cuda" else 1)

@@ -48,27 +48,40 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(args: list[str], world: int, stem: str, limit: int = LIMIT) -> list[dict]:
-    """`python -m kmdiff_tpu_torch *args` in `world` processes, all on the
-    caller's first card: one process, or the ranks of one gloo group
-    (--distributed 127.0.0.1:<free port>); logs and reports go to
-    STEM_<rank>.log and .json. Returns each process's report
-    (KMDIFF_RUN_REPORT: the command's start, seconds and launches) with its
+#: `python -m kmdiff_tpu_torch` with a virtual mesh (parallel.runtime's
+#: library switch, which no flag sets): its shards repeat the process's card
+_VIRTUAL = ("import runpy; from kmdiff_tpu_torch.parallel import runtime; "
+            "runtime.set_virtual(True); "
+            "runpy.run_module('kmdiff_tpu_torch', run_name='__main__', "
+            "alter_sys=True)")
+
+
+def spawn(args: list[str], world: int, stem: str, limit: int = LIMIT,
+          virtual: bool = False, cards: str | None = None) -> list[dict]:
+    """`python -m kmdiff_tpu_torch *args` in `world` processes: one process,
+    or the ranks of one gloo group (--distributed 127.0.0.1:<free port>);
+    logs and reports go to STEM_<rank>.log and .json. The processes see the
+    cards `cards` (CUDA_VISIBLE_DEVICES; by default the caller's first
+    card), and with `virtual` their meshes (--devices N in args) repeat
+    their card. Returns each process's report (KMDIFF_RUN_REPORT: the
+    command's start, seconds and launches, in all and by card) with its
     wall ("wall", spawn to exit) and its log. Every process is killed once
     one fails or `limit` seconds pass; a failure raises with the log's
     tail."""
     port = _free_port()
-    card = (os.environ.get("CUDA_VISIBLE_DEVICES") or "0").split(",")[0]
+    if cards is None:
+        cards = (os.environ.get("CUDA_VISIBLE_DEVICES") or "0").split(",")[0]
     procs = []
     for r in range(world):
         log = open(f"{stem}_{r}.log", "w")
         env = dict(os.environ, KMDIFF_RUN_REPORT=f"{stem}_{r}.json",
-                   CUDA_VISIBLE_DEVICES=card, KMDIFF_DIST_TIMEOUT=str(limit),
+                   CUDA_VISIBLE_DEVICES=cards, KMDIFF_DIST_TIMEOUT=str(limit),
                    PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
         flags = [] if world == 1 else [
             "--distributed", f"127.0.0.1:{port}", "--num-processes", str(world),
             "--process-id", str(r)]
-        cmd = [sys.executable, "-m", "kmdiff_tpu_torch", *args, *flags]
+        entry = ["-c", _VIRTUAL] if virtual else ["-m", "kmdiff_tpu_torch"]
+        cmd = [sys.executable, *entry, *args, *flags]
         procs.append({"proc": subprocess.Popen(cmd, env=env, stdout=log,
                                                stderr=subprocess.STDOUT, cwd=REPO),
                       "file": log, "t0": time.perf_counter()})

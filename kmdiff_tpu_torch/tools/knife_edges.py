@@ -57,7 +57,7 @@ def _alt_fits(corr, ratios, fit, where, dtype, null_ll=None):
     max-abs scaled as PopStratCorrector.correct_block makes them) with
     `fit` (glm.irls or glm.irls_plain) in dtype on `where`, against
     null_ll (the corrector's own null fit by default) -> (p [H], stop [H],
-    iters [H]), the LLR rule of correct_block."""
+    iters [H], weights [H, F]), the LLR rule of correct_block."""
     from kmdiff_tpu_torch.ops import glm
     from kmdiff_tpu_torch.pipeline.popstrat import _condition_design, chi2_sf1
 
@@ -68,13 +68,14 @@ def _alt_fits(corr, ratios, fit, where, dtype, null_ll=None):
     if null_ll is None:
         null_ll = corr.null_loglik
     shared, _c, _s = _condition_design(corr.alt_features[:, :-1])
-    _w, _e, iters, ll, stop = fit(t(np.column_stack([shared, np.zeros(corr.size)])[None]),
+    w, _e, iters, ll, stop = fit(t(np.column_stack([shared, np.zeros(corr.size)])[None]),
                                   t(ratios), y, corr.max_iteration)
     ll = ll.cpu().numpy().astype(np.float64)
     llr = -2.0 * (null_ll - ll)
     llr = np.where((np.abs(llr) < corr.epsilon) | (llr < 0.0) | ~np.isfinite(ll),
                    0.0, llr)
-    return chi2_sf1(llr), stop.cpu().numpy(), iters.cpu().numpy()
+    return (chi2_sf1(llr), stop.cpu().numpy(), iters.cpu().numpy(),
+            w.cpu().numpy().astype(np.float64))
 
 
 def _f64_null(corr, dev) -> float:
@@ -170,7 +171,8 @@ def describe(dev, opt, run_dir, gpu_out, cpu_out, cmp: dict, alpha) -> str:
     fit, and f64. Reports how many distinct alt designs they are (k-mers
     with equal count ratios have equal designs) and, a side at a time, how
     many are significant and how the fits stopped (stop 0 converged, 1
-    frozen by the solve, 2 at max_iters)."""
+    frozen by the solve, 2 at max_iters); then a line a design
+    (_design_line)."""
     from kmdiff_tpu_torch.cmd.diff import read_config
     from kmdiff_tpu_torch.ops import glm
     from kmdiff_tpu_torch.pipeline.popstrat import load_corrector
@@ -201,7 +203,7 @@ def describe(dev, opt, run_dir, gpu_out, cpu_out, cmp: dict, alpha) -> str:
                              "from compare's")
     f64 = fits["f64"][0][at] < alpha
     parts = []
-    for side, (p, stop, iters) in fits.items():
+    for side, (p, stop, iters, _w) in fits.items():
         sig, stop, iters = p[at] < alpha, stop[at], iters[at]
         parts.append(
             f"{side} significant on {int(sig.sum())} ({len(np.unique(group[sig]))} "
@@ -210,9 +212,41 @@ def describe(dev, opt, run_dir, gpu_out, cpu_out, cmp: dict, alpha) -> str:
             + f", iterations {int(iters.min())}-{int(iters.max())}"
             + ("" if side == "f64" else f", f64 sides with it on {int((sig == f64).sum())}"))
     sizes = np.bincount(group)
+    rows = np.flatnonzero(at)
+    designs = [_design_line(c_gpu, r, rows[group == g][0], dev, alpha, fits)
+               for g in range(len(sizes))]
     return (f"{int(at.sum())} k-mers in one FASTA only are {len(sizes)} distinct "
             f"alt designs ({', '.join(map(str, sorted(sizes.tolist(), reverse=True)))} "
-            "k-mers); " + "; ".join(parts))
+            "k-mers); " + "; ".join(parts) + "\n" + "\n".join(designs))
+
+
+def _design_line(corr, ratios, i, dev, alpha, fits) -> str:
+    """One alt design (row i of ratios) on every side of describe's fits:
+    p / alpha and iterations, and whether the f64 fit stopped at a
+    maximum: the f64 fit run on past its stopping rule (no tolerance, up to
+    max_iteration), its p / alpha, iterations and largest |weight| and
+    linear predictor |eta| before and after (a likelihood that keeps rising
+    as the weights grow has no finite maximum: a separated fit)."""
+    import functools
+
+    from kmdiff_tpu_torch.ops import glm
+    from kmdiff_tpu_torch.pipeline.popstrat import _condition_design
+
+    shared, _c, _s = _condition_design(corr.alt_features[:, :-1])
+
+    def eta(w):
+        return float(np.abs(shared @ w[:-1] + ratios[i] * w[-1]).max())
+
+    sides = ", ".join(f"{side} p/alpha {fit[0][i] / alpha:.4f} in {int(fit[2][i])} "
+                      "iterations" for side, fit in fits.items())
+    w64 = fits["f64"][3][i]
+    p, stop, iters, w = _alt_fits(corr, ratios[i:i + 1],
+                                  functools.partial(glm.irls_plain, eps_conv=0.0),
+                                  dev, torch.float64, _f64_null(corr, dev))
+    return (f"  design of k-mer row {i}: {sides}; f64 max|w| {np.abs(w64).max():.4g}, "
+            f"max|eta| {eta(w64):.4g}; run on with no tolerance: p/alpha "
+            f"{p[0] / alpha:.4f} after {int(iters[0])} iterations (stop {int(stop[0])}), "
+            f"max|w| {np.abs(w[0]).max():.4g}, max|eta| {eta(w[0]):.4g}")
 
 
 def main() -> None:

@@ -14,8 +14,10 @@ and the port's own.
   single process, and within the popstrat rule of the JAX package;
 - `run --distributed` equals the two-rank `count` + `diff`; `diff --model`
   over two ranks equals a single process's;
-- the CLI: `--distributed` runs, `--devices 2` beside it (item 7c) and
-  `--profile` raise, and `--devices N` alone runs the mesh;
+- the CLI: `--distributed` runs, `--devices 2` beside a coordinator that
+  opens no group and `--profile` keep the output, and `--devices N` alone
+  runs the mesh (two ranks of two shards:
+  tests/test_torch_mesh_distributed.py);
 - tools/dist_walls.py's reading of a rank's log.
 
 Every rank has a wall-clock limit and the group a gloo timeout
@@ -421,16 +423,28 @@ def test_cli_distributed_flags_parse():
         ("127.0.0.1:1", 2, 1)
 
 
-@pytest.mark.parametrize("extra, item", [
-    (["--devices", "2", "--distributed", "127.0.0.1:1", "--num-processes", "2",
-      "--process-id", "0"], "item 7c: the mesh under --distributed"),
-    (["--profile", "trace"], "item 10"),
+@pytest.mark.parametrize("extra", [
+    ["--devices", "2", "--distributed", "127.0.0.1:1", "--num-processes", "1",
+     "--process-id", "0"],
+    ["--profile", "trace"],
 ])
-def test_cli_unported_flags_name_their_item(cohort, tmp_path, extra, item):
-    # raised before any process group is opened: nothing waits for rank 1
-    with pytest.raises(NotImplementedError, match=item):
-        torch_main(_diff_args(cohort, tmp_path, *extra), device="cpu")
+def test_cli_mesh_and_profile_flags_keep_the_output(cohort, tmp_path, extra):
+    """--devices 2 beside --distributed (a group of one process opens
+    nothing: the mesh in this process) and --profile (a trace) run and
+    keep the FASTA of the plain command."""
+    run_dir = tmp_path / "rd"
+    assert torch_main(_count_args(cohort / "fof.txt", run_dir, 21),
+                      device="cpu") == 0
+    extra = [str(tmp_path / x) if x == "trace" else x for x in extra]
+    outs = []
+    for tag, flags in (("plain", []), ("flags", extra)):
+        out = tmp_path / tag
+        assert torch_main(_diff_args(run_dir, out, *flags), device="cpu") == 0
+        outs.append({n: (out / n).read_bytes() for n in FASTA})
     assert not D.is_distributed()
+    assert outs[0] == outs[1] and any(outs[0].values())
+    if "--profile" in extra:
+        assert len(list((tmp_path / "trace").glob("process.*.pt.trace.json"))) == 1
 
 
 @pytest.mark.parametrize("extra", [["--devices", "2"], ["--devices", "8"]])

@@ -17,9 +17,10 @@ output files must be equal, and the f32 LR within the filter's margin
   --devices 8: count + diff, the fused run, popstrat diff --save-sk and
   count at k = 63;
 - the sharded Gram and alt fits against the unsharded ones;
-- the runtime: --devices 0 on the CPU, KMDIFF_DEVICES, virtual meshes, and
-  the errors (--devices 2 with --distributed names item 7c; a CUDA mesh
-  larger than the machine raises).
+- the runtime: --devices 0 on the CPU, KMDIFF_DEVICES, virtual meshes,
+  --devices 2 beside a --distributed coordinator that opens no group (the
+  mesh in one process), and a CUDA mesh larger than the machine (it
+  raises).
 
 Two tests need the card (the cuda marker) and skip without one: K-PART
 against its twin at the mesh count's shapes, and every kernel of the mesh
@@ -536,23 +537,33 @@ def test_popstrat_alt_fits_split_over_shards():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--distributed", "127.0.0.1:1", "--num-processes", "2", "--process-id", "0"],
+    ["--distributed", "127.0.0.1:1", "--num-processes", "1", "--process-id", "0"],
     ["--distributed", "127.0.0.1:1"],
 ])
-def test_devices_with_distributed_names_item_7c(cohort, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        torch_main(["count", "--file", str(cohort / "sim" / "fof.txt"),
-                    "--run-dir", str(tmp_path / "rd"), "--devices", "2", *extra],
-                   device="cpu")
-    assert not (tmp_path / "rd").exists()
+def test_devices_beside_distributed_without_a_group_run_the_mesh(
+        cli_runs, tmp_path, extra):
+    """--devices 2 beside --distributed (the mesh under the multi-process
+    runtime): a coordinator with one process, or none, opens no group, and
+    the command runs the two-shard mesh in this process; its run directory
+    is the one-shard count's. (Two ranks of two shards:
+    tests/test_torch_mesh_distributed.py.)"""
+    from kmdiff_tpu_torch.parallel import distributed
+
+    fof = str(cli_runs / "sim" / "fof.txt")
+    argv = _commands(tmp_path, "g", fof)["count"]
+    assert torch_main([*argv, "--devices", "2", *extra], device="cpu") == 0
+    assert not distributed.is_distributed()
+    _same_tree(tmp_path / "count_g", cli_runs / "count_t1")
 
 
-def test_devices_with_coordinator_env_names_item_7c(cohort, tmp_path, monkeypatch):
+def test_devices_with_coordinator_env_without_a_group_run_the_mesh(
+        cli_runs, tmp_path, monkeypatch):
     monkeypatch.setenv("KMDIFF_COORDINATOR", "127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        torch_main(["count", "--file", str(cohort / "sim" / "fof.txt"),
-                    "--run-dir", str(tmp_path / "rd"), "--devices", "2"],
-                   device="cpu")
+    monkeypatch.delenv("KMDIFF_NUM_PROCESSES", raising=False)
+    fof = str(cli_runs / "sim" / "fof.txt")
+    argv = _commands(tmp_path, "e", fof)["count"]
+    assert torch_main([*argv, "--devices", "2"], device="cpu") == 0
+    _same_tree(tmp_path / "count_e", cli_runs / "count_t1")
 
 
 def test_cuda_mesh_larger_than_the_machine_raises(cohort, tmp_path):

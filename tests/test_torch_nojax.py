@@ -4,7 +4,9 @@ that refuses and records every import of `jax`, `jaxlib` or `kmdiff_tpu`
 simulates, counts, diffs and runs (the fused count -> diff) a tiny cohort on
 the CPU, then diffs and runs it again with population-stratification
 correction and --save-sk, diffs it with the port's device plugin
-(process_block_torch), maps the case k-mers with `call` and prints `infos`,
+(process_block_torch), maps the case k-mers with `call`, prints `infos`,
+runs `warmup --pop` and diffs it under `--profile` (cmd/warmup.py,
+profiling.py),
 and no such import was even attempted (on a machine where JAX is installed,
 an attempt would load it), and then counts, popstrat-diffs and runs it on
 a two-shard mesh (`--devices 2`: parallel/mesh.py, runtime.py,
@@ -92,6 +94,20 @@ _SCRIPT = _BLOCK + textwrap.dedent("""
     with open(os.path.join(root, "calls.tsv")) as f:
         assert len(f.read().splitlines()) > 1
     assert main(["infos"], device="cpu") == 0
+    # warmup (at sizes for the CPU's twins) and a --profile trace
+    import functools
+    from kmdiff_tpu_torch.cmd import warmup
+    warmup.main_warmup = functools.partial(
+        warmup.main_warmup, count_codes=(5000,), sample_codes=4096,
+        merge_rows=(500,))
+    assert main(["warmup", "-1", "2", "-2", "2", "--pop"], device="cpu") == 0
+    assert main(["diff", "--km-run-dir", os.path.join(root, "run"), "-1", "2",
+                 "-2", "2", "--threads", "1", "--output-dir",
+                 os.path.join(root, "out_prof"), "--profile",
+                 os.path.join(root, "prof")], device="cpu") == 0
+    assert os.listdir(os.path.join(root, "prof"))
+    for mod in ("profiling", "cmd.warmup"):
+        assert f"kmdiff_tpu_torch.{mod}" in sys.modules, mod
     # the mesh runtime (parallel/), on two CPU shards: count, diff with
     # popstrat and the fused run
     for command in (
@@ -188,5 +204,7 @@ def test_port_sources_never_import_jax():
     for name in ("distributed", "mesh", "runtime", "count_step", "merge_step",
                  "diff_step"):
         assert PORT / "parallel" / f"{name}.py" in sources, name
+    assert PORT / "profiling.py" in sources
+    assert PORT / "cmd" / "warmup.py" in sources
     for path in sources:
         assert not pattern.search(path.read_text()), path

@@ -126,30 +126,46 @@ def test_diff_matrix_run_dir_matches_jax(cohort, tmp_path):
         assert want
 
 
-# --distributed runs (tests/test_torch_distributed.py); with an unported
-# flag beside it (--devices above 1 is item 7c there) the command raises
-# before any process group is opened
+# --profile DIR writes a torch.profiler trace and keeps every output
+# (tests/test_torch_profile.py); --distributed without a process count and
+# --process-id alone open no group, so --devices 2 beside them is the mesh
+# in this process (two ranks of two shards: test_torch_mesh_distributed.py)
+def _loose_diff(cohort, out, *extra):
+    return ["diff", "--km-run-dir", str(cohort / "jax_run"), "-1", "3", "-2",
+            "3", "-s", "0.5", "--cutoff", "1", "-c", "disabled", "--output-dir",
+            str(out), *extra]
+
+
 @pytest.mark.parametrize("extra", [
     ["--profile", "trace", "--process-id", "0"],
     ["--profile", "trace"],
     ["--distributed", "h:1", "--devices", "2"],
 ])
-def test_unported_diff_flags_raise(cohort, extra, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch_main(["diff", "--km-run-dir", str(cohort / "jax_run"), "-1",
-                    "3", "-2", "3", "--output-dir", str(tmp_path), *extra],
-                   device="cpu")
+def test_profile_and_mesh_diff_flags_keep_the_output(cohort, extra, tmp_path):
+    extra = [str(tmp_path / x) if x == "trace" else x for x in extra]
+    assert torch_main(_loose_diff(cohort, tmp_path / "plain"), device="cpu") == 0
+    assert torch_main(_loose_diff(cohort, tmp_path / "out", *extra),
+                      device="cpu") == 0
+    plain, out = _files(tmp_path / "plain"), _files(tmp_path / "out")
+    assert plain == out and plain["case_kmers.fasta"]
+    traces = list((tmp_path / "trace").glob("*.pt.trace.json"))
+    assert len(traces) == ("--profile" in extra)
 
 
 @pytest.mark.parametrize("extra", [
     ["--profile", "trace"], ["--distributed", "h:1", "--profile", "trace"],
 ])
-def test_unported_run_flags_raise(cohort, extra, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch_main(["run", "--file", str(cohort / "sim" / "fof.txt"), "-d",
-                    str(tmp_path / "kc"), "-1", "3", "-2", "3", "-o",
-                    str(tmp_path / "out"), *extra], device="cpu")
-    assert not (tmp_path / "kc").exists()
+def test_profile_run_flags_keep_the_output(cohort, extra, tmp_path):
+    extra = [str(tmp_path / x) if x == "trace" else x for x in extra]
+    trees = []
+    for tag, flags in (("plain", []), ("traced", extra)):
+        assert torch_main(["run", "--file", str(cohort / "sim" / "fof.txt"),
+                           "-d", str(tmp_path / f"kc_{tag}"), "-1", "3", "-2",
+                           "3", "-o", str(tmp_path / tag), *flags],
+                          device="cpu") == 0
+        trees.append((_files(tmp_path / tag), _files(tmp_path / f"kc_{tag}")))
+    assert trees[0] == trees[1]
+    assert len(list((tmp_path / "trace").glob("process.*.pt.trace.json"))) == 1
 
 
 # --devices N runs the mesh (kmdiff_tpu_torch/parallel/, N CPU shards
@@ -184,7 +200,7 @@ def test_devices_flags_match_one_device(cohort, command, extra, tmp_path):
     assert trees[: len(trees) // 2] == trees[len(trees) // 2 :]
 
 
-def test_unported_commands_and_k_raise(tmp_path):
+def test_k_outside_8_128_exits_and_warmup_runs(tmp_path, monkeypatch):
     # k from 8 to 128 runs; outside that range the CLI rejects the value as
     # the JAX CLI does
     for k in ("7", "129"):
@@ -193,8 +209,80 @@ def test_unported_commands_and_k_raise(tmp_path):
             with pytest.raises(SystemExit) as e:
                 main(args)
             assert e.value.code == 2
-    with pytest.raises(NotImplementedError):
-        torch_main(["warmup", "-1", "1", "-2", "1"], device="cpu")
+    # warmup runs (test_warmup_* below at the CLI's sizes' shapes)
+    _small_warmup(monkeypatch)
+    monkeypatch.chdir(tmp_path)
+    assert torch_main(["warmup", "-1", "1", "-2", "1"], device="cpu") == 0
+    assert not _written(tmp_path)
+
+
+def _written(directory) -> list:
+    """The files in directory but the CLI's crash log, which a process's
+    first command opens there and removes at a clean exit
+    (utils/signals.py)."""
+    return [n for n in os.listdir(directory)
+            if not n.startswith("kmdiff_backtrace.log")]
+
+
+#: warmup's sizes cut for the CPU's plain twins
+SMALL_WARMUP = {"count_codes": (5000, 9000), "sample_codes": 4096,
+                "merge_rows": (500, 3000)}
+
+
+def _small_warmup(monkeypatch):
+    """The CLI's warmup at SMALL_WARMUP."""
+    import functools
+
+    from kmdiff_tpu_torch.cmd import warmup
+
+    monkeypatch.setattr(warmup, "main_warmup",
+                        functools.partial(warmup.main_warmup, **SMALL_WARMUP))
+
+
+@pytest.mark.parametrize("extra", [[], ["--pop"], ["--pop", "-k", "45"]])
+def test_warmup_writes_nothing_and_keeps_diff_output(cohort, extra, tmp_path,
+                                                     monkeypatch):
+    """warmup -1 3 -2 3 [--pop] on the CPU (its plain twins): returns 0,
+    writes no file in its directory (the libraries go under build/, built
+    already; the crash log aside) and a diff after it writes what one
+    before it wrote."""
+    _small_warmup(monkeypatch)
+    work = tmp_path / "work"
+    work.mkdir()
+    monkeypatch.chdir(work)
+    assert torch_main(_loose_diff(cohort, tmp_path / "before"), device="cpu") == 0
+    assert torch_main(["warmup", "-1", "3", "-2", "3", *extra], device="cpu") == 0
+    assert not _written(work)
+    assert torch_main(_loose_diff(cohort, tmp_path / "after"), device="cpu") == 0
+    assert _files(tmp_path / "before") == _files(tmp_path / "after")
+
+
+def test_warmup_runs_every_group(monkeypatch):
+    """main_warmup on the CPU at small sizes: every group ran, popstrat on
+    the sampled geno rows of its full merge and the survivors' alt fits."""
+    from kmdiff_tpu_torch.cmd.warmup import main_warmup
+    from kmdiff_tpu_torch.ops import pca
+    from kmdiff_tpu_torch.pipeline.popstrat import PopStratCorrector
+
+    seen = {}
+    gram, correct = pca.int_gram, PopStratCorrector.correct_block
+
+    def spy_gram(X):
+        seen["gram"] = X.shape
+        return gram(X)
+
+    def spy_correct(self, block):
+        seen["alt fits"] = len(block)
+        return correct(self, block)
+
+    monkeypatch.setattr(pca, "int_gram", spy_gram)
+    monkeypatch.setattr(PopStratCorrector, "correct_block", spy_correct)
+    seconds = main_warmup(3, 3, 31, torch.device("cpu"), pop=True,
+                          **SMALL_WARMUP)
+    assert set(seconds) == {"native", "count", "run chunk", "merge", "popstrat"}
+    assert seen["gram"][1] == 6 and seen["alt fits"] > 0
+    with pytest.raises(ValueError, match="one control and one case"):
+        main_warmup(0, 3, 31, torch.device("cpu"))
 
 
 def test_cuda_device_without_a_card_raises():

@@ -406,10 +406,14 @@ def test_infos_on_the_cpu(capsys):
     if not torch.cuda.is_available():
         assert "cuda: not available" in out
     for word in ("kernels    :", "native lib :", "process_block_torch",
-                 "--distributed", "--devices N", "port queue item 7c",
-                 "item 10",
-                 "KMDIFF_GROUP_MERGE"):
+                 "--distributed", "--devices N", "warmup", "--profile DIR",
+                 "a mesh of N cards a rank", "KMDIFF_GROUP_MERGE"):
         assert word in out
+    # port queue item 1 is the one thing not ported
+    not_ported = out[out.index("not ported :"):]
+    assert "item 1:" in not_ported
+    for gone in ("item 7c", "item 10", "raises"):
+        assert gone not in out
 
 
 @pytest.mark.cuda

@@ -454,3 +454,12 @@ def test_knife_edges_compare_and_describe(stratified_cohort, tmp_path):
     for side in ("K-IRLS", "twin (CPU)", "twin (card, f32)"):
         assert f"{side} significant on " in why
         assert "f64 sides with it on " in why
+    # a line a design: each side's p / alpha, and the f64 fit run on past
+    # its stopping rule
+    head, *designs = why.split("\n")
+    n_designs = int(head.split(" are ")[1].split(" distinct")[0])
+    assert len(designs) == n_designs >= 1
+    for line in designs:
+        assert line.startswith("  design of k-mer row ")
+        assert "K-IRLS p/alpha " in line and "f64 p/alpha " in line
+        assert "run on with no tolerance: p/alpha " in line
