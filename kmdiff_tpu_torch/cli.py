@@ -7,9 +7,10 @@ a command line runs unchanged on either package. ``count``, ``diff``, ``run``
 several processes with ``--distributed``, and over a mesh in each of
 several processes with both), ``popsim``, ``call``, ``infos`` and
 ``warmup`` run on the port, each under ``--profile DIR`` too (a
-torch.profiler trace, kmdiff_tpu_torch.profiling). What the port does not
-do yet is ROADMAP.md's port queue item 1: ``run`` ignores
-KMDIFF_GROUP_MERGE.
+torch.profiler trace, kmdiff_tpu_torch.profiling). ``run`` accepts
+KMDIFF_GROUP_MERGE=1 and ignores it: the JAX package's group
+pre-aggregation changes no output, and the port merges the per-sample
+streams.
 """
 
 from __future__ import annotations

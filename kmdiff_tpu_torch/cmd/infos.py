@@ -47,7 +47,7 @@ def main_infos(device: torch.device) -> str:
         "             --distributed a mesh of N cards a rank, --devices 0",
         "             there one card a rank), --profile DIR (torch.profiler",
         "             Chrome traces, one a rank)",
-        "not ported : KMDIFF_GROUP_MERGE (ROADMAP port queue item 1: run",
-        "             ignores it)",
+        "ignored    : KMDIFF_GROUP_MERGE (the JAX run's group pre-aggregation",
+        "             changes no output; run merges the per-sample streams)",
     ]
     return "\n".join(lines)

@@ -15,6 +15,10 @@ are let go, and popstrat corrects the hits (pipeline.popstrat) before the
 output. A cohort whose k-mer mass reaches 2^31 takes the full merge too,
 for its int64 group sums.
 
+KMDIFF_GROUP_MERGE=1, the JAX package's opt-in group pre-aggregation, is
+accepted and ignored: it changes no output, and the merge reads the
+per-sample streams.
+
 Custom models (--model), the multi-process runtime (--distributed: each
 rank takes its share of count and diff) and resumes (an existing
 options.json, or a run directory with every count file) take the standard
