@@ -20,6 +20,7 @@ import os
 
 import torch
 
+from kmdiff_tpu_torch import profiling
 from kmdiff_tpu_torch.cmd.options import (
     REDO_MERGE,
     REDO_POP,
@@ -211,11 +212,21 @@ def main_diff(opt: DiffOptions, device: torch.device,
     the merge; a new popstrat setting redoes the correction from the
     merge's spills, and a rerun with intact popstrat spills aggregates the
     corrected ones; a new correction only redoes the output. timings, when
-    given, receives popstrat's "pca", "null_fit" and "alt_fits" seconds.
+    given, receives popstrat's "pca", "null_fit" and "alt_fits" seconds and
+    the thread-seconds of the spans opened (profiling.collect: the merge's
+    "partition_thread_s" and, in its partitions, "decode_thread_s",
+    "groupsum_thread_s", "build_thread_s", "h2d_thread_s" and
+    "device_thread_s"; pipeline.merge.PartitionProcessor).
     With --model the plugin is loaded (and refused) before anything else,
     on every rank. Under the multi-process runtime the ranks share the
     partitions (_main_diff_distributed). The shard budget (--devices)
     configures the mesh runtime (parallel.runtime)."""
+    with profiling.collect(timings):
+        return _main_diff(opt, device, timings)
+
+
+def _main_diff(opt: DiffOptions, device: torch.device,
+               timings: dict | None) -> dict:
     from kmdiff_tpu_torch.parallel import runtime
 
     runtime.configure(opt.n_devices)

@@ -37,6 +37,7 @@ import time
 
 import torch
 
+from kmdiff_tpu_torch import profiling
 from kmdiff_tpu_torch.cmd.options import CountOptions, DiffOptions, dump_options
 from kmdiff_tpu_torch.parallel.distributed import (
     from_primary,
@@ -82,29 +83,32 @@ def main_run(copt: CountOptions, dopt: DiffOptions, device: torch.device,
     """The `run` command. recurrence_min is accepted and not applied, as in
     the count stage. timings, when given, receives the wall seconds of the
     fused path's phases ("count", "merge", "total", and with popstrat
-    "pca", "null_fit", "alt_fits"); the result dict is main_diff's. The
-    shard budget (--devices) configures the mesh runtime
-    (parallel.runtime)."""
+    "pca", "null_fit", "alt_fits") and the thread-seconds of the spans
+    opened (profiling.collect: "parse_thread_s", "h2d_thread_s",
+    "count_thread_s" a sample, "merge_chunk_thread_s", "device_thread_s" a
+    merge chunk); the result dict is main_diff's. The shard budget
+    (--devices) configures the mesh runtime (parallel.runtime)."""
     from kmdiff_tpu_torch.parallel import runtime
 
     runtime.configure(dopt.n_devices)
     manifest = os.path.join(dopt.output_directory, "options.json")
-    if (is_distributed() or dopt.model_lib_path or os.path.exists(manifest)
-            or _run_dir_complete(copt.directory)):
-        logger.info("run: using the standard count+diff flow.")
+    with profiling.collect(timings):
+        if (is_distributed() or dopt.model_lib_path or os.path.exists(manifest)
+                or _run_dir_complete(copt.directory)):
+            logger.info("run: using the standard count+diff flow.")
+            return _standard_flow(copt, dopt, device)
+        try:
+            return _main_run_fused(copt, dopt, device, count_files, timings)
+        except (FusedFallback, torch.cuda.OutOfMemoryError) as e:
+            reason = f"{type(e).__name__}: {e}"
+        # outside the handler: the exception is gone, and with it the
+        # traceback whose frames held the resident streams
+        logger.warning("fused pipeline unavailable (%s); running the standard "
+                       "count+diff flow.", reason)
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
         return _standard_flow(copt, dopt, device)
-    try:
-        return _main_run_fused(copt, dopt, device, count_files, timings)
-    except (FusedFallback, torch.cuda.OutOfMemoryError) as e:
-        reason = f"{type(e).__name__}: {e}"
-    # outside the handler: the exception is gone, and with it the traceback
-    # whose frames held the resident streams
-    logger.warning("fused pipeline unavailable (%s); running the standard "
-                   "count+diff flow.", reason)
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    return _standard_flow(copt, dopt, device)
 
 
 class _Spills:
@@ -203,11 +207,15 @@ def _main_run_fused(copt: CountOptions, dopt: DiffOptions,
         count_timer = Timer()
         streams: list = [None] * len(fof.entries)
 
+        def parse(path: str):
+            with profiling.span("kmd:parse"):
+                return flat_codes(path)
+
         def one_sample(i: int) -> None:
             entry = fof.entries[i]
             paths = [p if os.path.isabs(p) else os.path.join(fof_dir, p)
                      for p in entry.paths]
-            codes = [c for c in (flat_codes(p) for p in paths) if len(c)]
+            codes = [c for c in (parse(p) for p in paths) if len(c)]
             hard_min = entry.ab_min or copt.hard_min
             st = fused.count_sample_resident(codes, k, hard_min, device)
             streams[i] = st

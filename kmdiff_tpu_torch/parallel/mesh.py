@@ -54,7 +54,7 @@ class Mesh:
             dev = self.devices[d]
             ctx = (torch.cuda.device(dev) if dev.type == "cuda"
                    else contextlib.nullcontext())
-            with ctx, profiling.span(f"kmd:shard{d}"):
+            with ctx, profiling.span(f"kmd:shard{d}", timed=False):
                 return fn(d, dev)
 
         if n <= 1:

@@ -56,7 +56,7 @@ import torch
 
 from kmdiff_tpu_torch.io.accumulator import KmerSignBlock
 from kmdiff_tpu_torch.utils.logging import logger
-from kmdiff_tpu_torch import kernels
+from kmdiff_tpu_torch import kernels, profiling
 from kmdiff_tpu_torch.ops.codec import (
     HIST_BINS,
     canonical_kmers,
@@ -111,10 +111,13 @@ def count_sample_resident(all_codes: list[np.ndarray], k: int, hard_min: int,
                           device: torch.device) -> ResidentStream:
     """Count one sample's code arrays on `device` and keep the result
     there. The chunking is count's (pipeline.count._host_code_chunks at
-    pipeline.count.SORT_ROWS, read at each call)."""
+    pipeline.count.SORT_ROWS, read at each call). Each chunk's copy to the
+    device is a ``kmd:h2d`` span, the rest of the work ``kmd:count`` spans
+    (profiling.span)."""
     from kmdiff_tpu_torch.pipeline import count as count_mod
 
-    chunks = count_mod._host_code_chunks(all_codes, k, count_mod.SORT_ROWS)
+    with profiling.span("kmd:count"):
+        chunks = count_mod._host_code_chunks(all_codes, k, count_mod.SORT_ROWS)
     if not chunks:
         nw = n_words(k)
         return ResidentStream(
@@ -122,26 +125,32 @@ def count_sample_resident(all_codes: list[np.ndarray], k: int, hard_min: int,
             torch.zeros(0, dtype=torch.int32, device=device),
             0, 0, np.zeros(HIST_BINS, np.int64), 0, 0,
         )
-    if len(chunks) == 1:
-        codes = torch.from_numpy(chunks[0]).to(device)
-        keys, counts, stats = sort_rle(canonical_kmers(codes, k), with_hist=True)
-        total_mass = stats.n_valid
-    else:
-        # a chunk boundary splits a k-mer's occurrences into partial counts
-        # in several chunk streams; dedup_sum adds them up (count's host
-        # k-way merge, on the device). Tight copies: K-RUN's outputs are
-        # views of a 12-bytes-a-window buffer.
-        parts = []
-        for chunk in chunks:
-            keys_c, counts_c = fused_count(torch.from_numpy(chunk).to(device), k)
-            parts.append((keys_c.clone(), counts_c.clone()))
-        keys_cat = torch.cat([p[0] for p in parts], -1)
-        weights = torch.cat([p[1] for p in parts])
-        del parts
-        total_mass = int(weights.sum(dtype=torch.int64))
-        keys, counts, stats = dedup_sum(keys_cat, weights, with_hist=True)
-        del keys_cat, weights
-    return _finalize_resident(keys, counts, stats, total_mass, hard_min)
+    # a chunk boundary splits a k-mer's occurrences into partial counts in
+    # several chunk streams; dedup_sum adds them up (count's host k-way
+    # merge, on the device). Tight copies: K-RUN's outputs are views of a
+    # 12-bytes-a-window buffer.
+    parts = []
+    for chunk in chunks:
+        with profiling.span("kmd:h2d"):
+            codes = torch.from_numpy(chunk).to(device)
+        with profiling.span("kmd:count"):
+            if len(chunks) == 1:
+                keys, counts, stats = sort_rle(canonical_kmers(codes, k),
+                                               with_hist=True)
+                total_mass = stats.n_valid
+            else:
+                keys_c, counts_c = fused_count(codes, k)
+                parts.append((keys_c.clone(), counts_c.clone()))
+            del codes
+    with profiling.span("kmd:count"):
+        if parts:
+            keys_cat = torch.cat([p[0] for p in parts], -1)
+            weights = torch.cat([p[1] for p in parts])
+            del parts
+            total_mass = int(weights.sum(dtype=torch.int64))
+            keys, counts, stats = dedup_sum(keys_cat, weights, with_hist=True)
+            del keys_cat, weights
+        return _finalize_resident(keys, counts, stats, total_mass, hard_min)
 
 
 def _finalize_resident(keys, counts, stats, total_mass: int,
@@ -427,12 +436,13 @@ def fused_merge(processor, accumulators, streams: list[ResidentStream],
     # D chunks a dispatch, chunk c + d on shard d; pushed in chunk order
     for c0 in range(0, len(starts), mesh.size):
         n = min(mesh.size, len(starts) - c0)
-        for out in mesh.map(lambda d, dev: compute(c0 + d, dev), n):
-            res = processor.push_chunk(0, out, racc, geno_sink, matrix_sink)
-            total += res.total_kmers
-            nsign += res.nb_sign
-            n_ctrl += res.sign_controls
-            n_case += res.sign_cases
+        with profiling.span("kmd:merge_chunk"):
+            for out in mesh.map(lambda d, dev: compute(c0 + d, dev), n):
+                res = processor.push_chunk(0, out, racc, geno_sink, matrix_sink)
+                total += res.total_kmers
+                nsign += res.nb_sign
+                n_ctrl += res.sign_controls
+                n_case += res.sign_cases
     del tables
     racc.finish()
     S = len(streams)
@@ -443,10 +453,8 @@ def fused_merge(processor, accumulators, streams: list[ResidentStream],
             processor.write_matrix_sink(
                 p, [(km[i == p], ct[i == p]) for (km, ct), i in zip(matrix_sink, ids)],
                 kmer_size, S)
-    phases = processor.phases.drain()
-    logger.debug("fused merge: %d rows in %d chunks (%s) in %.2fs (%s)",
+    logger.debug("fused merge: %d rows in %d chunks (%s) in %.2fs",
                  int(lens.sum()), len(starts),
                  "full" if full else "p16" if pack16 else "p32",
-                 time.perf_counter() - t0,
-                 " ".join(f"{k}={v:.2f}s" for k, v in sorted(phases.items())))
+                 time.perf_counter() - t0)
     return total, nsign, n_ctrl, n_case

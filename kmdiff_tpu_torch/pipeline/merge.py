@@ -41,11 +41,11 @@ import concurrent.futures as cf
 import dataclasses
 import functools
 import threading
-import time
 
 import numpy as np
 import torch
 
+from kmdiff_tpu_torch import profiling
 from kmdiff_tpu_torch.core.model import IModel, PoissonLikelihood, Significance
 from kmdiff_tpu_torch.io.accumulator import IAccumulator, KmerSignBlock
 from kmdiff_tpu_torch.io.kmtricks import read_kmer_file
@@ -114,16 +114,13 @@ class ChunkOut:
     """One merged chunk on the host (PartitionProcessor.compute_chunk): its
     distinct k-mers, the filter's survivors (kmers [H, nw] u64, exact int64
     group sums), their count rows [H, S] int32 holding u32 (or None) and
-    the sampled geno rows [G, S] u8 (or None); phases: the seconds of its
-    build and device stages, which push_chunk adds to the partition's log
-    on the partition's thread (a mesh's parts are summed: shard-seconds)."""
+    the sampled geno rows [G, S] u8 (or None)."""
     n_distinct: int
     hit_kmers: np.ndarray
     s_c: np.ndarray
     s_k: np.ndarray
     rows: np.ndarray | None
     geno: np.ndarray | None
-    phases: dict = dataclasses.field(default_factory=dict)
 
     @staticmethod
     def concat(outs: list[ChunkOut]) -> ChunkOut:
@@ -136,12 +133,8 @@ class ChunkOut:
             parts = [getattr(o, name) for o in outs]
             return None if parts[0] is None else np.concatenate(parts)
 
-        phases = {}
-        for o in outs:
-            for key, dt in o.phases.items():
-                phases[key] = phases.get(key, 0.0) + dt
         return ChunkOut(sum(o.n_distinct for o in outs), cat("hit_kmers"),
-                        cat("s_c"), cat("s_k"), cat("rows"), cat("geno"), phases)
+                        cat("s_c"), cat("s_k"), cat("rows"), cat("geno"))
 
 
 @dataclasses.dataclass
@@ -153,26 +146,18 @@ class PartitionResult:
     sign_cases: int
 
 
-class _Phases(threading.local):
-    """Per-thread stage times (decode / groupsum / build / device; a custom
-    model's decode / union / score), logged at debug level when a partition
-    ends."""
-
-    def __init__(self):
-        self.t = {}
-
-    def add(self, key, dt):
-        self.t[key] = self.t.get(key, 0.0) + dt
-
-    def drain(self):
-        out, self.t = self.t, {}
-        return out
-
-
 class PartitionProcessor:
     """Runs one partition: load -> merge + filter on `device` -> exact
     rescore -> accumulate (reference observer: merge.hpp:68-103); a custom
-    model's partition: load -> host union merge -> the model's scores."""
+    model's partition: load -> host union merge -> the model's scores.
+
+    Its stages are spans (profiling.span): a partition of files is
+    ``kmd:partition``; in it the files' decode ``kmd:decode``, the host
+    group pre-sum ``kmd:groupsum``, a chunk's keys and packed counts
+    ``kmd:build``, their copy to the device ``kmd:h2d``, and the device
+    merge with its survivors' way back ``kmd:device`` (a fused run's chunks
+    too); a custom model's union merge ``kmd:union`` and scores
+    ``kmd:score``."""
 
     def __init__(self, model: IModel, nb_controls: int, nb_cases: int,
                  threshold: float, device: torch.device,
@@ -192,7 +177,6 @@ class PartitionProcessor:
         self.sampler = sampler
         self.save_matrix_path = save_matrix_path
         self.want_rows = keep_counts or save_matrix_path is not None
-        self.phases = _Phases()
         if isinstance(model, PoissonLikelihood):
             self.abi = None
             self.params = LrtParams(nb_controls, nb_cases, model.sum_controls,
@@ -350,26 +334,21 @@ class PartitionProcessor:
 
     def process_files(self, partition: int, paths: list[str],
                       acc: IAccumulator) -> PartitionResult:
-        t0 = time.perf_counter()
-        kmers_list, counts_list, ksize = [], [], 0
-        for path in paths:
-            info, kmers, counts = read_kmer_file(path)
-            ksize = info.kmer_size
-            kmers_list.append(kmers)
-            counts_list.append(counts)
-        self.phases.add("decode", time.perf_counter() - t0)
-        if self.params is None:
-            t0 = time.perf_counter()
-            kmers, counts = merge_sorted_streams(kmers_list, counts_list)
-            self.phases.add("union", time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            res = self.process_arrays(partition, kmers, counts, acc, ksize)
-            self.phases.add("score", time.perf_counter() - t0)
-        else:
-            res = self._process_device_merge(partition, kmers_list,
-                                             counts_list, acc, ksize)
-        self._log_phases(partition)
-        return res
+        with profiling.span("kmd:partition"):
+            kmers_list, counts_list, ksize = [], [], 0
+            with profiling.span("kmd:decode"):
+                for path in paths:
+                    info, kmers, counts = read_kmer_file(path)
+                    ksize = info.kmer_size
+                    kmers_list.append(kmers)
+                    counts_list.append(counts)
+            if self.params is not None:
+                return self._process_device_merge(partition, kmers_list,
+                                                  counts_list, acc, ksize)
+            with profiling.span("kmd:union"):
+                kmers, counts = merge_sorted_streams(kmers_list, counts_list)
+            with profiling.span("kmd:score"):
+                return self.process_arrays(partition, kmers, counts, acc, ksize)
 
     def process_arrays(self, partition: int, kmers: np.ndarray,
                        counts: np.ndarray, acc: IAccumulator,
@@ -424,13 +403,12 @@ class PartitionProcessor:
             # distinct k-mer instead of one per carrying sample
             from kmdiff_tpu_torch.pipeline.count import _merge_streams
 
-            t0 = time.perf_counter()
-            ctrl = _merge_streams(list(zip(kmers_list[:nbc], counts_list[:nbc])))
-            case = _merge_streams(list(zip(kmers_list[nbc:], counts_list[nbc:])))
+            with profiling.span("kmd:groupsum"):
+                ctrl = _merge_streams(list(zip(kmers_list[:nbc], counts_list[:nbc])))
+                case = _merge_streams(list(zip(kmers_list[nbc:], counts_list[nbc:])))
             kmers_list = [ctrl[0], case[0]]
             counts_list = [ctrl[1], case[1]]
             nbc = 1
-            self.phases.add("groupsum", time.perf_counter() - t0)
         from kmdiff_tpu_torch.parallel.merge_step import merge_shards
         from kmdiff_tpu_torch.parallel.runtime import get_mesh
 
@@ -488,20 +466,20 @@ class PartitionProcessor:
             pack16_ok,
         )
 
-        t0 = time.perf_counter()
         sample = None
-        if self.full:
-            keys, count, sample, _N = build_triples(kmers_list, counts_list)
-            sample = torch.from_numpy(sample).to(device)
-        else:
-            keys, count, _N = build_triples_packed(
-                kmers_list, counts_list, nbc, pack16=pack16_ok(counts_list)
-            )
-        build = time.perf_counter() - t0
-        out = self.compute_chunk(torch.from_numpy(keys).to(device),
-                                 torch.from_numpy(count).to(device), sample)
-        out.phases["build"] = build
-        return out
+        with profiling.span("kmd:build"):
+            if self.full:
+                keys, count, sample, _N = build_triples(kmers_list, counts_list)
+            else:
+                keys, count, _N = build_triples_packed(
+                    kmers_list, counts_list, nbc, pack16=pack16_ok(counts_list)
+                )
+        with profiling.span("kmd:h2d"):
+            keys = torch.from_numpy(keys).to(device)
+            count = torch.from_numpy(count).to(device)
+            if sample is not None:
+                sample = torch.from_numpy(sample).to(device)
+        return self.compute_chunk(keys, count, sample)
 
     def compute_chunk(self, keys: torch.Tensor, count: torch.Tensor,
                       sample: torch.Tensor | None = None) -> ChunkOut:
@@ -522,27 +500,26 @@ class PartitionProcessor:
             pca_threshold_u32,
         )
 
-        t0 = time.perf_counter()
-        rows = geno = None
-        if sample is None:
-            n_distinct, hit_keys, hit_sums = merge_lrt(
-                keys, count, self.params.ratio_c, self.params.ratio_k,
-                self.params.lr_min,
-            )
-        else:
-            sampler = self.sampler
-            n_distinct, hit_keys, hit_sums, rows, geno = merge_lrt_full(
-                keys, count, sample, self.nb_controls + self.nb_cases,
-                self.nb_controls, self.params.ratio_c, self.params.ratio_k, self.params.lr_min,
-                want_rows=self.want_rows, want_geno=sampler is not None,
-                pca_thr=pca_threshold_u32(sampler.rate) if sampler else 0,
-                pca_seed=sampler.seed if sampler else 0,
-            )
-        hit_kmers, s_c, s_k = self._unpack_blob(hit_keys, hit_sums)
-        rows = None if rows is None else rows.cpu().numpy()
-        geno = None if geno is None else geno.cpu().numpy()
-        return ChunkOut(n_distinct, hit_kmers, s_c, s_k, rows, geno,
-                        {"device": time.perf_counter() - t0})
+        with profiling.span("kmd:device"):
+            rows = geno = None
+            if sample is None:
+                n_distinct, hit_keys, hit_sums = merge_lrt(
+                    keys, count, self.params.ratio_c, self.params.ratio_k,
+                    self.params.lr_min,
+                )
+            else:
+                sampler = self.sampler
+                n_distinct, hit_keys, hit_sums, rows, geno = merge_lrt_full(
+                    keys, count, sample, self.nb_controls + self.nb_cases,
+                    self.nb_controls, self.params.ratio_c, self.params.ratio_k, self.params.lr_min,
+                    want_rows=self.want_rows, want_geno=sampler is not None,
+                    pca_thr=pca_threshold_u32(sampler.rate) if sampler else 0,
+                    pca_seed=sampler.seed if sampler else 0,
+                )
+            hit_kmers, s_c, s_k = self._unpack_blob(hit_keys, hit_sums)
+            rows = None if rows is None else rows.cpu().numpy()
+            geno = None if geno is None else geno.cpu().numpy()
+        return ChunkOut(n_distinct, hit_kmers, s_c, s_k, rows, geno)
 
     def push_chunk(self, partition, out: ChunkOut, acc,
                    geno_sink: list | None = None,
@@ -552,8 +529,6 @@ class PartitionProcessor:
         keep_counts, their --save-sk rows go to matrix_sink and the sampled
         geno rows to geno_sink (new_sinks; the caller hands them on with
         flush_sinks)."""
-        for key, dt in out.phases.items():
-            self.phases.add(key, dt)
         hit_kmers, s_c, s_k = out.hit_kmers, out.s_c, out.s_k
         p, sg, mc, mk = self.model.process_sums(s_c, s_k)
         final = p <= self.threshold
@@ -579,14 +554,6 @@ class PartitionProcessor:
         n_ctrl = int(np.sum(block.signs == int(Significance.CONTROL)))
         return PartitionResult(partition, out.n_distinct, len(block), n_ctrl,
                                len(block) - n_ctrl)
-
-    def _log_phases(self, partition: int) -> None:
-        t = self.phases.drain()
-        if t:
-            logger.debug(
-                "partition %d phases: %s", partition,
-                " ".join(f"{k}={v:.2f}s" for k, v in sorted(t.items())),
-            )
 
     # -- device dispatch -----------------------------------------------------
 

@@ -15,12 +15,23 @@ on the CPU side (kernels.launch: ctypes calls are no torch op, so the
 trace would show their device time alone) and each shard of a mesh's work a
 ``kmd:shard<d>`` range on its thread (parallel.mesh.Mesh.map). Without a
 trace, ``active`` is False and nothing else is done.
+
+``span(name)`` is the port's one span of its own host work (a sample's
+parse, copy and count in ``run``, a partition's stages in ``diff``, a merge
+chunk). While a trace runs it is a ``record_function`` range, on the same
+clock as the card's activity in the trace. While a command collects
+(``collect(timings)``: main_run and main_diff, given timings), it also adds
+its wall seconds to ``timings["<name without kmd:>_thread_s"]``, summed over
+every thread that opens it. Kernel launches and mesh shards open trace-only
+ranges (``timed=False``). With neither a trace nor a collector a span is a
+null context.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 
 import torch
@@ -30,13 +41,54 @@ from kmdiff_tpu_torch.utils.logging import logger
 #: True while a command's trace runs (a process has one profiler)
 active = False
 
+#: the timings that spans add to while a command collects (a process runs
+#: one command at a time; the sample, partition and shard threads it starts
+#: inherit no context variable, so the collector is process-wide)
+_sink: dict | None = None
+_sink_lock = threading.Lock()
 
-def span(name: str):
-    """A ``record_function`` range named `name` while a trace runs; a null
-    context otherwise."""
-    if not active:
-        return contextlib.nullcontext()
-    return torch.profiler.record_function(name)
+
+def span(name: str, timed: bool = True):
+    """A ``record_function`` range named `name` while a trace runs; and,
+    when `timed` and a command collects, its wall seconds added to the
+    command's timings under ``<name without kmd:>_thread_s``. A null context
+    with neither."""
+    sink = _sink if timed else None
+    if sink is None:
+        if not active:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(name)
+    return _timed_span(name, sink)
+
+
+@contextlib.contextmanager
+def _timed_span(name: str, sink: dict):
+    key = name.removeprefix("kmd:") + "_thread_s"
+    t0 = time.perf_counter()
+    try:
+        with (torch.profiler.record_function(name) if active
+              else contextlib.nullcontext()):
+            yield
+    finally:
+        dt = time.perf_counter() - t0
+        with _sink_lock:
+            sink[key] = sink.get(key, 0.0) + dt
+
+
+@contextlib.contextmanager
+def collect(timings: dict | None):
+    """While the block runs, every timed span adds its wall seconds to
+    `timings` (span); nothing for None. The collector in place before is
+    restored after the block."""
+    global _sink
+    if timings is None:
+        yield
+        return
+    outer, _sink = _sink, timings
+    try:
+        yield
+    finally:
+        _sink = outer
 
 
 @contextlib.contextmanager

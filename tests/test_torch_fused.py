@@ -233,7 +233,12 @@ def test_run_p32_counts(tmp_path, monkeypatch):
     jres = jrun.main_run(*opts(tmp_path / "j"))
     assert packings == [False]
     assert res == jres and res["total_kmers"] > 0
-    assert set(timings) == {"count", "merge", "total"}
+    # the fused path's walls and the thread-seconds of its spans
+    # (profiling.collect): a sample's parse, copy and count, a merge chunk
+    # and its device merge
+    assert set(timings) == {"count", "merge", "total", "parse_thread_s",
+                            "h2d_thread_s", "count_thread_s",
+                            "merge_chunk_thread_s", "device_thread_s"}
     _same_outputs(tmp_path / "t", tmp_path / "j")
     assert (_files(tmp_path / "t" / "kc") == _files(tmp_path / "j" / "kc"))
 

@@ -8,7 +8,11 @@ trace of one command, on the CPU.
   (profile_all_threads);
 - two --distributed ranks write two files, rank0.* and rank1.*;
 - `infos --profile` writes a trace (the JAX CLI traces every command);
-- without a trace the launch path's switch is off.
+- without a trace the launch path's switch is off;
+- the port's host spans (`kmd:parse`, `kmd:h2d`, `kmd:count`,
+  `kmd:merge_chunk`; `kmd:partition`, `kmd:decode`, `kmd:device`) are
+  ranges of the trace, the per-sample and per-partition ones on worker
+  threads.
 
 The cohort is tests/test_torch_mesh.py's: popsim's 3 + 3 samples of a
 20 kbp genome, seed 5.
@@ -95,6 +99,31 @@ def test_profile_keeps_outputs_and_writes_a_trace(cohort, tmp_path, command,
               if e["tid"] == s["tid"] and e["name"].startswith("aten::")
               and s["ts"] <= e["ts"] <= s["ts"] + s["dur"]]
     assert inside
+
+
+SPANS = {"run": {"kmd:parse", "kmd:h2d", "kmd:count", "kmd:merge_chunk"},
+         "diff": {"kmd:partition", "kmd:decode", "kmd:device"}}
+
+
+@pytest.mark.parametrize("command", ["run", "diff"])
+def test_profile_holds_the_port_spans(cohort, tmp_path, command):
+    """The port's own host spans (profiling.span) are ranges of the trace:
+    a sample's parse, copy and count on the sample threads, not the
+    command's, and a merge chunk in `run`; a partition, its decode and its
+    device merge in `diff`, on the partition threads."""
+    prof = tmp_path / "prof"
+    assert torch_main(_command(cohort, command, tmp_path / "traced",
+                               ["--profile", str(prof)]), device="cpu") == 0
+    (trace,) = _traces(prof)
+    events = _events(trace)
+    main_tid = threading.main_thread().native_id
+    found = {e["name"] for e in events if e["name"] in SPANS[command]}
+    assert found == SPANS[command]
+    threaded = {e["name"] for e in events
+                if e["name"] in SPANS[command] and e["tid"] != main_tid}
+    want = ({"kmd:parse", "kmd:h2d", "kmd:count"} if command == "run"
+            else SPANS["diff"])
+    assert want <= threaded
 
 
 def test_two_ranks_write_a_trace_each(cohort, tmp_path):
