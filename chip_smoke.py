@@ -67,6 +67,10 @@ Run from the root of a checkout, with no arguments:
    10's per-call shapes (a bench sample's windows over D shards, k = 31 and
    63), every 151st a sentinel row, 4 partitions, D = 2 and 4, equal to its
    twin, with its device time (20 queued launches).
+   K-FASTA (fasta_codes, the fused run's decode) on a kbench sample's
+   FASTA bytes (123,777 reads of 150 bp, 19.8 MB) and a bench sample's
+   (2^23 bp at coverage 1), equal to its twin, with its device time
+   (torch.profiler, as its call waits for its code count).
    Also plan_key_chunks (the fused merge's chunk plan, plain torch) on
    phase 4's plan shape, 20 streams of 4,700,000 keys, timed as a whole
    call beside its bytes bound. Integers, masks and
@@ -546,7 +550,47 @@ def compare_kernels(dev) -> dict:
     out["assemble_chunk_mw"] = compare_assemble_mw(dev)
     out["geno_sample_mw"] = compare_geno_mw(dev, rng)
     out["partition_ids"] = compare_partition(dev, rng)
+    out["fasta_codes"] = compare_fasta(dev, rng)
     return out
+
+
+def compare_fasta(dev, rng):
+    """K-FASTA on the bytes of a kbench sample file (123,777 reads of 150
+    bp under 8-byte names) and of a bench sample file (GENOME bases at
+    coverage 1 in 150 bp reads): whole calls (the count read included),
+    device time and operations from torch.profiler, the bound (bytes in and
+    codes out). Returns the kbench sample's row."""
+    import numpy as np
+    import torch
+
+    from kmdiff_tpu_torch.ops import codec
+
+    res = {}
+    for label, n_reads in (("kbench sample", 123_777),
+                           ("bench sample", GENOME // 150)):
+        rec = np.empty((n_reads, 160), dtype=np.uint8)
+        rec[:, :9] = np.frombuffer(b">r000000\n", dtype=np.uint8)
+        rec[:, 9:159] = np.frombuffer(b"ACGT", dtype=np.uint8)[
+            rng.integers(0, 4, (n_reads, 150))]
+        rec[:, 159] = ord("\n")
+        raw = torch.from_numpy(rec.reshape(-1)).to(dev)
+        codes, strict = codec.fasta_codes(raw, False)
+        want, want_strict = codec.fasta_codes_plain(raw, False)
+        assert strict and want_strict
+        check_equal(f"fasta_codes {label}", codes, want)
+        ms = median_ms(lambda: codec.fasta_codes(raw, False))
+        dev_ms, n_ops = device_work(lambda: codec.fasta_codes(raw, False))
+        plain = median_ms(lambda: codec.fasta_codes_plain(raw, False), reps=5,
+                          warmup=1)
+        n = raw.numel()
+        r = row(ms, plain, 0.0, n + codes.numel(), 30 * n, device_ms=dev_ms)
+        print(f"[K-FASTA] fasta_codes {label}, {n} bytes -> {codes.numel()} "
+              f"codes: kernel {ms:.4f} ms (device {dev_ms:.4f} ms in {n_ops} "
+              f"device ops, torch.profiler), plain (torch on the card) "
+              f"{plain:.4f} ms; {share(r)}, {r['bound_ms'] / dev_ms:.1%} of it "
+              f"over the device time; library: none (no one call)")
+        res[label] = r
+    return res["kbench sample"]
 
 
 def compare_ext_mw(dev, rng):
@@ -1698,7 +1742,8 @@ def run_main_path(dev) -> dict:
 
 #: the kernels each path launches
 COUNT_DIFF_KERNELS = ("canonical_kmers", "run_bounds", "compact", "lrt_filter")
-RUN_KERNELS = (*COUNT_DIFF_KERNELS, "assemble_chunk", "abundance_hist")
+RUN_KERNELS = (*COUNT_DIFF_KERNELS, "assemble_chunk", "abundance_hist",
+               "fasta_codes")
 
 
 def require_launches(path: str, launches: dict, names) -> None:
@@ -3251,6 +3296,8 @@ def main() -> int:
                            mw_launches["popstrat diff k=63"]),
         # K-PART runs on the mesh path only: phase 10's two virtual shards
         "partition_ids": ("kmdiff_tpu/ops/codec.py:175", mesh_launches),
+        # K-FASTA replaces none (the JAX package decodes on the host)
+        "fasta_codes": ("none", fused_launches["a"]),
     }
     rows = []
     for name, (replaces, launches) in meta.items():

@@ -1,8 +1,10 @@
 """`run`: FASTA -> significant k-mers in one process (port of
 kmdiff_tpu/cmd/run.py; one device, or a mesh of shards: --devices).
 
-A fresh run counts every sample to a stream that stays on the device
-(pipeline.fused) and merges the streams there: the count's device-to-host
+A fresh run decodes every sample's FASTA/FASTQ files on the device
+(io.fasta.device_codes: the host reads the bytes, K-FASTA makes the codes),
+counts it to a stream that stays there (pipeline.fused) and merges the
+streams there: the host decode of the reads, the count's device-to-host
 copy of the keys, and the diff's file decode and host group pre-sum, leave
 the critical path. The kmtricks-format run directory is still written:
 histograms at once (the model's totals come from them), count files by
@@ -86,7 +88,9 @@ def main_run(copt: CountOptions, dopt: DiffOptions, device: torch.device,
     "pca", "null_fit", "alt_fits") and the thread-seconds of the spans
     opened (profiling.collect: "parse_thread_s", "h2d_thread_s",
     "count_thread_s" a sample, "merge_chunk_thread_s", "device_thread_s" a
-    merge chunk); the result dict is main_diff's. The shard budget
+    merge chunk) and the counts of files decoded, "parse_files", and of
+    those the record parser took, "parse_fallback_files"
+    (io.fasta.device_codes); the result dict is main_diff's. The shard budget
     (--devices) configures the mesh runtime (parallel.runtime)."""
     from kmdiff_tpu_torch.parallel import runtime
 
@@ -173,7 +177,7 @@ def _main_run_fused(copt: CountOptions, dopt: DiffOptions,
         do_correction,
         save_sk_dir,
     )
-    from kmdiff_tpu_torch.io.fasta import flat_codes
+    from kmdiff_tpu_torch.io.fasta import FileStaging, device_codes
     from kmdiff_tpu_torch.pipeline import fused
     from kmdiff_tpu_torch.pipeline.merge import PartitionProcessor
 
@@ -207,15 +211,12 @@ def _main_run_fused(copt: CountOptions, dopt: DiffOptions,
         count_timer = Timer()
         streams: list = [None] * len(fof.entries)
 
-        def parse(path: str):
-            with profiling.span("kmd:parse"):
-                return flat_codes(path)
-
         def one_sample(i: int) -> None:
             entry = fof.entries[i]
             paths = [p if os.path.isabs(p) else os.path.join(fof_dir, p)
                      for p in entry.paths]
-            codes = [c for c in (parse(p) for p in paths) if len(c)]
+            codes = [c for c in (device_codes(p, device, staging) for p in paths)
+                     if len(c)]
             hard_min = entry.ab_min or copt.hard_min
             st = fused.count_sample_resident(codes, k, hard_min, device)
             streams[i] = st
@@ -228,9 +229,11 @@ def _main_run_fused(copt: CountOptions, dopt: DiffOptions,
                         "resident.", entry.id, st.n_distinct_pre, st.U, hard_min)
             spills.queue(run_dir, entry.id, i, k, nb_partitions, st)
 
-        # samples on host threads: file parsing overlaps the device work,
-        # which queues on one stream
-        with cf.ThreadPoolExecutor(max(1, copt.nb_threads)) as pool:
+        # samples on host threads: a sample's file reads overlap the
+        # device work, which queues on one stream; each thread reads its
+        # files into its own staging buffer, freed once the samples are in
+        with (FileStaging(device) as staging,
+              cf.ThreadPoolExecutor(max(1, copt.nb_threads)) as pool):
             list(pool.map(one_sample, range(len(fof.entries))))
         resident = sum(st.nbytes for st in streams)
         if timings is not None:

@@ -15,8 +15,9 @@ that only the cases carry, sixteen times), merged at diff's default cut,
 at the JAX warmup's sizes without its padding ladder:
 
   * counting: the two-stage count of one sample at each of count_codes
-    codes (K-EXT, K-RUN), the fused run's resident count of each sample
-    (K-HIST) and the dedup of a sample counted in two chunks (K-WRUN);
+    codes (K-EXT, K-RUN), the fused run's decode of a FASTA file's bytes
+    (K-FASTA), its resident count of each sample (K-HIST) and the dedup of
+    a sample counted in two chunks (K-WRUN);
   * one fused-run merge over the S resident streams (K-ASM into the packed
     merge: K-RUN, K-LRT, K-CMP);
   * the two-stage merge + K-LRT at each of merge_rows rows;
@@ -112,7 +113,7 @@ def main_warmup(nb_controls: int, nb_cases: int, kmer_size: int,
     "popstrat")."""
     from kmdiff_tpu_torch.core.model import PoissonLikelihood
     from kmdiff_tpu_torch.io.accumulator import KmerSignBlock, VectorAccumulator
-    from kmdiff_tpu_torch.ops.codec import dedup_sum
+    from kmdiff_tpu_torch.ops.codec import dedup_sum, fasta_codes
     from kmdiff_tpu_torch.pipeline import fused
     from kmdiff_tpu_torch.pipeline.count import count_sample_device
     from kmdiff_tpu_torch.pipeline.merge import PartitionProcessor
@@ -140,6 +141,8 @@ def main_warmup(nb_controls: int, nb_cases: int, kmer_size: int,
         for n in count_codes:
             count_sample_device([rng.integers(0, 4, n, dtype=np.uint8)],
                                 kmer_size, 4, device)
+        fasta_codes(torch.frombuffer(bytearray(b">warmup\nACGTN\n"),
+                                     dtype=torch.uint8).to(device), False)
         streams.extend(fused.count_sample_resident([c], kmer_size, 1, device)
                        for c in _cohort_codes(S, nb_controls, sample_codes, rng))
         # a sample counted in two chunks: its partial counts dedup-summed

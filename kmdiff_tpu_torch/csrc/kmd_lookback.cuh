@@ -1,7 +1,9 @@
 // Decoupled look-back (Merrill and Garland, "Single-pass Parallel Prefix
 // Scan with Decoupled Look-back", NVIDIA, 2016): the exclusive prefix of the
 // per-tile counts of a single-pass kernel whose blocks each own one tile of
-// consecutive rows. K-CMP (compact.cu) and K-RUN (run_bounds.cu) share it.
+// consecutive rows. K-CMP (compact.cu) and K-RUN (run_bounds.cu) share it;
+// K-FASTA (fasta_codes.cu) carries an ordered value through the same status
+// words (exclusive_prefix_ordered).
 //
 // Scratch: uint64 [1 + n_tiles], zeroed before the launch: the tile
 // counter, then one status word per tile. A block takes its tile id from
@@ -73,6 +75,40 @@ __device__ __forceinline__ long long exclusive_prefix(unsigned long long* scratc
     store_release(&scratch[1 + t],
                   kPrefix | static_cast<unsigned long long>(exclusive + count));
   }
+  return exclusive;
+}
+
+// exclusive_prefix for a tile value that is not a count (K-FASTA's newline
+// count with the state of the last line): op(earlier, later) combines two
+// values of consecutive spans, is associative, has 0 as its identity and
+// keeps a value below 2^62. Lane l holds tile last - l, so the warp folds
+// the higher (earlier) lanes in from the left, in tile order.
+template <typename Op>
+__device__ __forceinline__ unsigned long long exclusive_prefix_ordered(
+    unsigned long long* scratch, int t, unsigned long long value, int lane,
+    Op op) {
+  const unsigned long long* status = scratch + 1;
+  unsigned long long exclusive = 0;
+  if (t == 0) return 0;
+  for (long long last = t - 1;; last -= 32) {
+    const long long i = last - lane;
+    unsigned long long s = kPrefix;  // before tile 0: the identity
+    if (i >= 0) {
+      do {
+        s = load_acquire(&status[i]);
+      } while (s < kAggregate);
+    }
+    const unsigned pre = __ballot_sync(0xffffffffu, s >= kPrefix);
+    const int stop = pre ? __ffs(pre) - 1 : 31;
+    unsigned long long x = lane <= stop ? (s & kValue) : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned long long y = __shfl_down_sync(0xffffffffu, x, o);
+      if (lane + o < 32) x = op(y, x);
+    }
+    exclusive = op(__shfl_sync(0xffffffffu, x, 0), exclusive);
+    if (pre) break;
+  }
+  if (lane == 0) store_release(&scratch[1 + t], kPrefix | op(exclusive, value));
   return exclusive;
 }
 

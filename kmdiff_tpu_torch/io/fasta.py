@@ -9,17 +9,24 @@ default double format (integral doubles print without a decimal point).
 
 Reader handles FASTA and FASTQ, plain or gzip, multi-line sequences, and
 flat_codes turns a file into the 2-bit code stream of the counting engine
-(ops.codec).
+(ops.codec) on the host. device_codes gives the same codes on a device: the
+host reads the file's bytes into a reused staging buffer (FileStaging,
+page-locked for a card), they go to the device in one copy, and K-FASTA
+(ops.codec.fasta_codes) decodes them there.
 """
 
 from __future__ import annotations
 
 import gzip
 import io
+import os
+import threading
 
 import numpy as np
+import torch
 
-from kmdiff_tpu_torch.ops.codec import INVALID, encode_ascii_block
+from kmdiff_tpu_torch import profiling
+from kmdiff_tpu_torch.ops.codec import INVALID, encode_ascii_block, fasta_codes
 
 
 def format_double(v: float) -> str:
@@ -143,9 +150,96 @@ def flat_codes(path: str) -> np.ndarray:
             np.add.at(mask, ends[~keep_line], -1)
             codes[np.cumsum(mask[:-1]) > 0] = INVALID
         else:  # malformed / multi-line FASTQ: generic parser
-            joined = b"\xff".join(seq.encode() for _n, seq in iter_records(path))
-            return encode_ascii_block(np.frombuffer(joined, dtype=np.uint8))
+            return record_codes(path)
     else:
         raise ValueError(f"{path}: not FASTA/FASTQ")
 
     return codes[~nl]
+
+
+def record_codes(path: str) -> np.ndarray:
+    """The record parser's code stream: each record's sequence, joined by
+    one INVALID code (flat_codes' way with a FASTQ file that is not strict
+    four-line records)."""
+    joined = b"\xff".join(seq.encode() for _n, seq in iter_records(path))
+    return encode_ascii_block(np.frombuffer(joined, dtype=np.uint8))
+
+
+class FileStaging:
+    """Host buffers that file bytes are read into on their way to
+    `device`: one a thread, page-locked when the device is a card, reused
+    file after file and grown to the largest file read; close() lets them
+    go. A context manager."""
+
+    def __init__(self, device: torch.device):
+        self._pin = device.type == "cuda"
+        self._buffers: dict[int, torch.Tensor] = {}  # thread id -> buffer
+
+    def _buffer(self, nbytes: int, keep: int = 0) -> torch.Tensor:
+        """This thread's buffer, grown to at least nbytes (at least twice
+        its size), with its first `keep` bytes kept."""
+        me = threading.get_ident()
+        buf = self._buffers.get(me)
+        if buf is None or buf.numel() < nbytes:
+            grown = torch.empty(max(nbytes, 0 if buf is None else 2 * buf.numel()),
+                                dtype=torch.uint8, pin_memory=self._pin)
+            if keep:
+                grown[:keep] = buf[:keep]
+            buf = self._buffers[me] = grown
+        return buf
+
+    def read(self, path: str) -> torch.Tensor:
+        """The file's bytes (a .gz inflated) as a view of this thread's
+        buffer, valid until this thread's next read."""
+        opener = gzip.open if str(path).endswith(".gz") else open
+        with opener(path, "rb") as f:
+            # one byte past the size: the read that finds the end fits
+            buf = self._buffer(os.fstat(f.fileno()).st_size + 1)
+            n = 0
+            while True:
+                if n == buf.numel():
+                    buf = self._buffer(n + 1, keep=n)
+                got = f.readinto(buf.numpy()[n:])
+                if not got:
+                    return buf[:n]
+                n += got
+
+    def close(self) -> None:
+        self._buffers.clear()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def device_codes(path: str, device: torch.device,
+                 staging: FileStaging) -> torch.Tensor:
+    """flat_codes(path) as a uint8 tensor on `device`, decoded there: the
+    file's bytes are read into this thread's staging buffer, copied to the
+    device (non-blocking from page-locked memory) and decoded by K-FASTA
+    (its plain twin on the CPU), whose read of the code count is the one
+    host sync; the buffer is free again once it returns. A FASTQ file
+    that is not strict four-line records takes the record parser on the
+    host, as in flat_codes. The read and the decode are ``kmd:parse`` spans,
+    the copy a ``kmd:h2d`` span; a collecting command tallies the files
+    under ``parse_files`` and those the record parser took under
+    ``parse_fallback_files`` (profiling)."""
+    with profiling.span("kmd:parse"):
+        host = staging.read(path)
+    fastq = False
+    if host.numel():
+        first = int(host[0])
+        if first not in (0x3E, 0x40):  # '>' FASTA, '@' FASTQ
+            raise ValueError(f"{path}: not FASTA/FASTQ")
+        fastq = first == 0x40
+    with profiling.span("kmd:h2d"):
+        raw = host.to(device, non_blocking=True)
+    with profiling.span("kmd:parse"):
+        codes, strict = fasta_codes(raw, fastq)
+        if not strict:
+            codes = torch.from_numpy(record_codes(path)).to(device)
+    profiling.tally("parse_files")
+    profiling.tally("parse_fallback_files", int(not strict))
+    return codes

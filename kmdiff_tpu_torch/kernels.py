@@ -18,6 +18,9 @@ The kernels live in ``csrc/*.cu`` beside this file:
   partition_ids    K-PART  owner shard of each k-mer  (ops.codec; the mesh
                            and the rows a shard gets   count, parallel.
                                                        count_step)
+  fasta_codes      K-FASTA FASTA/FASTQ bytes -> codes (ops.codec; the fused
+                                                       run's decode,
+                                                       io.fasta.device_codes)
 
 K-EXT, K-RUN, K-ASM and K-GENO also have a multi-word form for k > 32
 (keys of 2-4 u64 words, word-major [nw, N]) in the same source, counted
@@ -39,8 +42,8 @@ summed over every thread (the mesh runtime's shards launch from a thread
 each). A caller resets the counts, drives a path and reads them to show the
 path went through the kernels. A
 C entry point returns ``cudaGetLastError()`` after its launches (K-CMP's,
-K-RUN's and K-HIST's, which return results in page-locked host memory,
-after waiting for their kernel) and
+K-RUN's, K-HIST's and K-FASTA's, which return results in page-locked host
+memory, after waiting for their kernel) and
 ``launch`` raises on anything but 0.
 """
 
@@ -64,7 +67,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kmdiff_tpu_torch")
 
 KERNELS = ("lrt_filter", "canonical_kmers", "run_bounds", "compact",
            "assemble_chunk", "weighted_runs", "abundance_hist", "run_rows",
-           "geno_sample", "int_gram", "irls", "partition_ids")
+           "geno_sample", "int_gram", "irls", "partition_ids", "fasta_codes")
 
 #: the multi-word forms' launch-count names -> the kernel (source) of each
 MULTIWORD = {"canonical_kmers_mw": "canonical_kmers", "run_bounds_mw": "run_bounds",
@@ -118,6 +121,8 @@ _SIGNATURES = {
     "kmd_irls": (_i, [_vp, _ll, _vp, _vp, _ll, _i, _i, _i, _f, _f, _ll, _vp, _vp,
                       _vp, _vp, _vp, _vp]),
     "kmd_partition_ids": (_i, [_vp, _ll, _ll, _i, _u, _i, _vp, _vp]),
+    "kmd_fasta_codes_tile_bytes": (_ll, []),
+    "kmd_fasta_codes": (_i, [_vp, _ll, _i, _vp, _vp, _vp, _vp]),
     "kmd_error_string": (ctypes.c_char_p, [_i]),
 }
 

@@ -37,6 +37,10 @@ of K-EXT and K-RUN with a multi-word form beside the one-word one:
                           keys -> each row's owner shard ((partition hash
                           mod P) mod D, D for a sentinel) and the rows a
                           shard gets: the mesh count's bucketing
+  K-FASTA fasta_codes     a FASTA or FASTQ file's bytes [L] u8 -> its codes
+                          [n] u8 (io/fasta.py::flat_codes' stream) and
+                          whether a FASTQ file is strict, in one launch and
+                          one host sync
 
 ``sort_rle`` and ``fused_count`` chain them into the counting program
 (sort_rle_core / fused_count_kernel in the JAX package), ``dedup_sum`` into
@@ -657,6 +661,77 @@ def partition_targets(keys: torch.Tensor, nb_partitions: int, n_shards: int):
                        ld, N, nw, nb_partitions, n_shards, targets.data_ptr(),
                        counts.data_ptr())
     return targets, counts
+
+
+# -- K-FASTA -------------------------------------------------------------------
+
+_FASTA, _FASTQ = 0x3E, 0x40  # a file's first byte: '>' or '@'
+
+
+def fasta_codes_plain(raw: torch.Tensor, fastq: bool):
+    """K-FASTA's twin: io/fasta.py::flat_codes' logic on a tensor, for a
+    file that is not redone by the record parser."""
+    L = raw.numel()
+    if L == 0:
+        return torch.zeros(0, dtype=torch.uint8, device=raw.device), True
+    table = torch.from_numpy(encode_ascii_block(np.arange(256, dtype=np.uint8)))
+    nl = raw == 0x0A
+    # each byte's line: the newlines before it
+    line = torch.cumsum(nl, 0) - nl.to(torch.int64)
+    starts = torch.ones(L, dtype=torch.bool, device=raw.device)
+    starts[1:] = nl[:-1]
+    first = raw[starts]  # each line's first byte
+    if fastq:
+        strict = (first.numel() % 4 == 0 and bool((first[0::4] == _FASTQ).all())
+                  and bool((first[2::4] == 0x2B).all()))
+        masked = line % 4 != 1  # sequence lines only
+    else:
+        strict = True
+        masked = (first == _FASTA)[line]
+    codes = torch.where(masked, int(INVALID), table.to(raw.device)[raw.long()])
+    return codes[~nl], strict
+
+
+def _fasta_slot() -> torch.Tensor:
+    """This thread's page-locked pair that K-FASTA writes its results
+    into; one a thread suffices, since a call waits for its kernel."""
+    slot = getattr(_thread, "fasta", None)
+    if slot is None:
+        slot = _thread.fasta = torch.empty(2, dtype=torch.int64, pin_memory=True)
+    return slot
+
+
+def fasta_codes(raw: torch.Tensor, fastq: bool):
+    """K-FASTA: a FASTA (fastq False: its first byte '>') or FASTQ (its
+    first byte '@') file's bytes [L] u8 -> (its 2-bit codes [n] u8, strict):
+    the codes of io/fasta.py::flat_codes, byte for byte, with the header
+    lines (FASTQ: every line but the sequences) INVALID and the newlines
+    dropped; strict is False for a FASTQ file that is not four-line
+    records, whose codes the caller must take from the record parser
+    instead. One allocation holds the codes at L bytes and the kernel's
+    scratch, one kernel writes n codes, and n and strict into this thread's
+    page-locked pair, and the C entry point waits for it: the codes are a
+    [:n] view."""
+    if raw.device.type == "cpu":
+        return fasta_codes_plain(raw, fastq)
+    kernels.require_cuda_tensor("fasta_codes raw", raw, torch.uint8)
+    L = raw.numel()
+    if L == 0:
+        return torch.zeros(0, dtype=torch.uint8, device=raw.device), True
+    # tiles start at the 16-byte boundary at or below the bytes
+    tile = kernels.lib().kmd_fasta_codes_tile_bytes()
+    n_tiles = -(-(L + raw.data_ptr() % 16) // tile)
+    # [codes: L, to a multiple of 16][scratch: int64, 1 + n_tiles]
+    out_bytes = -(-L // 16) * 16
+    buf = torch.empty(out_bytes + 8 * (1 + n_tiles), dtype=torch.uint8,
+                      device=raw.device)
+    slot = _fasta_slot()
+    with torch.cuda.device(raw.device):
+        kernels.launch("fasta_codes", "kmd_fasta_codes", raw.data_ptr(), L,
+                       int(fastq), buf.data_ptr(), buf.data_ptr() + out_bytes,
+                       slot.data_ptr())
+    n, strict = slot.tolist()
+    return buf[:n], bool(strict)
 
 
 # -- counting ------------------------------------------------------------------

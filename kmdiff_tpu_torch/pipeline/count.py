@@ -77,7 +77,12 @@ def _host_code_chunks(all_codes: list[np.ndarray], k: int,
     spans two files) and cut them into chunks of <= sort_rows windows with
     k-1 codes of overlap, so every window lies in exactly one chunk. No
     padding: the device takes any length."""
-    codes = _join_codes(all_codes)
+    return _code_chunks(_join_codes(all_codes), k, sort_rows)
+
+
+def _code_chunks(codes, k: int, sort_rows: int) -> list:
+    """A joined code array (numpy, or a tensor) cut into views of <=
+    sort_rows windows with k-1 codes of overlap."""
     if len(codes) < k:
         return []
     return [codes[s : s + sort_rows + k - 1]
@@ -156,9 +161,16 @@ def spill_resident_sample(run_dir: str, entry_id: str, sample_idx: int,
                              nb_partitions, kmers, parts, counts)
 
 
-def _join_codes(all_codes: list[np.ndarray]) -> np.ndarray:
-    """The per-file code arrays joined with one INVALID separator."""
-    sep = np.full(1, INVALID, dtype=np.uint8)
+def _join_codes(all_codes: list):
+    """The per-file code arrays joined with one INVALID separator: numpy
+    arrays on the host, or uint8 tensors on their device (one array is
+    returned as it is)."""
+    if all_codes and torch.is_tensor(all_codes[0]):
+        sep = torch.full((1,), int(INVALID), dtype=torch.uint8,
+                         device=all_codes[0].device)
+        concatenate = torch.cat
+    else:
+        sep, concatenate = np.full(1, INVALID, dtype=np.uint8), np.concatenate
     parts = []
     for c in all_codes:
         if parts:
@@ -166,7 +178,7 @@ def _join_codes(all_codes: list[np.ndarray]) -> np.ndarray:
         parts.append(c)
     if not parts:
         return np.zeros(0, np.uint8)
-    return parts[0] if len(parts) == 1 else np.concatenate(parts)
+    return parts[0] if len(parts) == 1 else concatenate(parts)
 
 
 def count_sample_device_mesh(all_codes: list[np.ndarray], k: int,

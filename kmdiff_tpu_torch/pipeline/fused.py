@@ -107,17 +107,25 @@ class ResidentStream:
         return self.keys.numel() * 8 + self.counts.numel() * 4
 
 
-def count_sample_resident(all_codes: list[np.ndarray], k: int, hard_min: int,
+def count_sample_resident(all_codes: list, k: int, hard_min: int,
                           device: torch.device) -> ResidentStream:
-    """Count one sample's code arrays on `device` and keep the result
-    there. The chunking is count's (pipeline.count._host_code_chunks at
-    pipeline.count.SORT_ROWS, read at each call). Each chunk's copy to the
+    """Count one sample's code arrays (uint8 tensors on `device`, as
+    io.fasta.device_codes decodes them, or numpy arrays) on `device` and
+    keep the result there. The arrays are joined on the device and cut
+    into count's chunks as views (pipeline.count._join_codes and
+    _code_chunks at pipeline.count.SORT_ROWS, read at each call: the
+    windows and chunks of _host_code_chunks). A numpy array's copy to the
     device is a ``kmd:h2d`` span, the rest of the work ``kmd:count`` spans
     (profiling.span)."""
     from kmdiff_tpu_torch.pipeline import count as count_mod
 
+    if any(isinstance(c, np.ndarray) for c in all_codes):
+        with profiling.span("kmd:h2d"):
+            all_codes = [torch.from_numpy(c).to(device)
+                         if isinstance(c, np.ndarray) else c for c in all_codes]
     with profiling.span("kmd:count"):
-        chunks = count_mod._host_code_chunks(all_codes, k, count_mod.SORT_ROWS)
+        chunks = count_mod._code_chunks(count_mod._join_codes(all_codes), k,
+                                        count_mod.SORT_ROWS)
     if not chunks:
         nw = n_words(k)
         return ResidentStream(
@@ -130,10 +138,8 @@ def count_sample_resident(all_codes: list[np.ndarray], k: int, hard_min: int,
     # merge, on the device). Tight copies: K-RUN's outputs are views of a
     # 12-bytes-a-window buffer.
     parts = []
-    for chunk in chunks:
-        with profiling.span("kmd:h2d"):
-            codes = torch.from_numpy(chunk).to(device)
-        with profiling.span("kmd:count"):
+    with profiling.span("kmd:count"):
+        for codes in chunks:
             if len(chunks) == 1:
                 keys, counts, stats = sort_rle(canonical_kmers(codes, k),
                                                with_hist=True)
@@ -141,8 +147,7 @@ def count_sample_resident(all_codes: list[np.ndarray], k: int, hard_min: int,
             else:
                 keys_c, counts_c = fused_count(codes, k)
                 parts.append((keys_c.clone(), counts_c.clone()))
-            del codes
-    with profiling.span("kmd:count"):
+        del chunks, codes, all_codes
         if parts:
             keys_cat = torch.cat([p[0] for p in parts], -1)
             weights = torch.cat([p[1] for p in parts])

@@ -24,7 +24,9 @@ clock as the card's activity in the trace. While a command collects
 its wall seconds to ``timings["<name without kmd:>_thread_s"]``, summed over
 every thread that opens it. Kernel launches and mesh shards open trace-only
 ranges (``timed=False``). With neither a trace nor a collector a span is a
-null context.
+null context. ``tally(name, n)`` adds an integer count to a collecting
+command's timings (the fused run's files decoded, ``parse_files``, and those
+that took the host record parser, ``parse_fallback_files``).
 """
 
 from __future__ import annotations
@@ -73,6 +75,16 @@ def _timed_span(name: str, sink: dict):
         dt = time.perf_counter() - t0
         with _sink_lock:
             sink[key] = sink.get(key, 0.0) + dt
+
+
+def tally(name: str, n: int = 1) -> None:
+    """While a command collects, add n to its ``timings[name]`` (an integer
+    count, created at 0 by the first tally: a tally of 0 shows that the
+    path ran); nothing otherwise."""
+    sink = _sink
+    if sink is not None:
+        with _sink_lock:
+            sink[name] = sink.get(name, 0) + n
 
 
 @contextlib.contextmanager

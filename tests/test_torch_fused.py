@@ -3,10 +3,12 @@ wrapper takes its plain twin), on a simulated cohort (20 kbp genome, 3
 controls + 3 cases, k=31). Its outputs (FASTA, KFF, options.json) and its
 run directory (count files, histograms, kmtricks.fof, kmdiff-count.opt)
 must be byte-identical to the JAX package's `run` and to the port's own
-`count` + `diff`. Both packages' `_standard_flow` is made to fail wherever
-the fused path must serve the run.
+`count` + `diff`, also with a sample in two files (FASTA and .gz FASTQ)
+and a FASTQ file that the record parser takes. Both packages'
+`_standard_flow` is made to fail wherever the fused path must serve the run.
 """
 
+import gzip
 import os
 import sys
 import threading
@@ -19,6 +21,7 @@ import kmdiff_tpu.pipeline.count as jcount
 import kmdiff_tpu.pipeline.fused as jfused
 from kmdiff_tpu.cli import main as jax_main
 from kmdiff_tpu.pipeline.simulate import SimOptions, simulate
+from kmdiff_tpu_torch import profiling
 from kmdiff_tpu_torch.cli import main as torch_main
 from kmdiff_tpu_torch.cmd import run as trun
 from kmdiff_tpu_torch.pipeline import count as tcount
@@ -119,6 +122,45 @@ def test_run_matches_port_count_diff(fof, tmp_path, monkeypatch):
     _no_fallback(monkeypatch)
     ours = _port_run(fof, tmp_path / "f")
     two = _port_count_diff(fof, tmp_path / "s")
+    _same_outputs(ours, two)
+    _same_run_dirs(ours, two)
+
+
+def _mixed_fof(fof, root) -> str:
+    """The cohort with its first sample in two files (a FASTA and a
+    gzipped FASTQ of the rest of its reads) and its second a FASTQ that
+    is not strict four-line records (a blank last line)."""
+    entries = [line.split(" : ") for line in open(fof).read().splitlines()]
+    reads = open(entries[0][1]).read().splitlines()
+    half = len(reads) // 4 * 2
+    (root / "s0a.fasta").write_text("\n".join(reads[:half]) + "\n")
+    with gzip.open(root / "s0b.fastq.gz", "wt") as f:
+        for name, seq in zip(reads[half::2], reads[half + 1::2]):
+            f.write(f"@{name[1:]}\n{seq}\n+\n{'I' * len(seq)}\n")
+    reads = open(entries[1][1]).read().splitlines()
+    with open(root / "s1.fastq", "w") as f:
+        for name, seq in zip(reads[0::2], reads[1::2]):
+            f.write(f"@{name[1:]}\n{seq}\n+\n{'I' * len(seq)}\n")
+        f.write("\n")
+    entries[0][1] = f"{root / 's0a.fasta'} ; {root / 's0b.fastq.gz'}"
+    entries[1][1] = str(root / "s1.fastq")
+    path = root / "mixed_fof.txt"
+    path.write_text("".join(f"{e} : {p}\n" for e, p in entries))
+    return str(path)
+
+
+def test_run_decodes_mixed_files_as_count_does(fof, tmp_path, monkeypatch):
+    """A sample in two files (FASTA and .gz FASTQ, joined on the device)
+    and a FASTQ file that the record parser takes: the fused run tallies
+    all seven files, that one as the record parser's, and its outputs and
+    run directory equal count + diff's, whose host parse is flat_codes."""
+    mixed = _mixed_fof(fof, tmp_path)
+    _no_fallback(monkeypatch)
+    timings: dict = {}
+    with profiling.collect(timings):
+        ours = _port_run(mixed, tmp_path / "f")
+    assert (timings["parse_files"], timings["parse_fallback_files"]) == (7, 1)
+    two = _port_count_diff(mixed, tmp_path / "s")
     _same_outputs(ours, two)
     _same_run_dirs(ours, two)
 
@@ -235,10 +277,12 @@ def test_run_p32_counts(tmp_path, monkeypatch):
     assert res == jres and res["total_kmers"] > 0
     # the fused path's walls and the thread-seconds of its spans
     # (profiling.collect): a sample's parse, copy and count, a merge chunk
-    # and its device merge
+    # and its device merge; and its tallies of the files decoded
     assert set(timings) == {"count", "merge", "total", "parse_thread_s",
                             "h2d_thread_s", "count_thread_s",
-                            "merge_chunk_thread_s", "device_thread_s"}
+                            "merge_chunk_thread_s", "device_thread_s",
+                            "parse_files", "parse_fallback_files"}
+    assert (timings["parse_files"], timings["parse_fallback_files"]) == (2, 0)
     _same_outputs(tmp_path / "t", tmp_path / "j")
     assert (_files(tmp_path / "t" / "kc") == _files(tmp_path / "j" / "kc"))
 

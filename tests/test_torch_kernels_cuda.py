@@ -36,7 +36,12 @@ at byte offsets 1 to 15, K-RUN in all five forms at N =
 1 to 9,001 around its tile, with sentinel tails, all sentinel, a run
 across tiles and a view of a wider buffer, K-GENO on views, K-ASM with 1,
 2 and 20 streams and empty slices, the merges and the resident count on
-the card against the CPU.
+the card against the CPU; K-FASTA against its twin on random FASTA and
+FASTQ bytes from one byte to 40 tiles, on views at byte offsets 1 to 15, on
+an 8 MB sequence line behind a header over twelve tiles and on 1 MB FASTQ
+lines, and through io.fasta.device_codes on a bench-shaped sample file and
+a malformed FASTQ (the record parser's), one launch a file, also from four
+threads.
 They need an NVIDIA GPU and nvcc, and skip without one; run them on the card
 with
 
@@ -1451,3 +1456,137 @@ def test_count_sample_resident_mw_cuda_matches_cpu(dev, k, monkeypatch):
         _eq(g.keys, c.keys)
         _eq(g.counts, c.counts)
         assert np.array_equal(g.hist_uvec, c.hist_uvec) and g.U > 0
+
+
+# -- K-FASTA -------------------------------------------------------------------
+
+def _fasta_bytes(size: int, seed: int, fastq: bool) -> bytes:
+    """`size` bytes of a random FASTA (sequence lines of 0-300 bytes,
+    letters, N, IUPAC, '\\r', '>' inside lines) or FASTQ (strict four-line
+    records, cut at `size`)."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"ACGTACGTacgtNnRY\r>", dtype=np.uint8)
+    out = bytearray()
+    while len(out) < size:
+        if fastq:
+            n = int(rng.integers(1, 200))
+            out += (b"@r\n" + bytes(letters[rng.integers(0, 16, n)]) + b"\n+\n"
+                    + b"I" * n + b"\n")
+        else:
+            out += b">r\n"
+            for _ in range(int(rng.integers(1, 4))):
+                n = int(rng.choice([0, 1, 60, 151, 300]))
+                out += bytes(letters[rng.integers(0, len(letters), n)]) + b"\n"
+    return bytes(out[:size])
+
+
+def _fasta_check(raw, fastq):
+    """K-FASTA on raw (a uint8 tensor on the card) against its twin on the
+    same tensor, in one launch."""
+    before = kernels.launch_counts()["fasta_codes"]
+    codes, strict = codec.fasta_codes(raw, fastq)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fasta_codes"] == before + (1 if raw.numel() else 0)
+    want, want_strict = codec.fasta_codes_plain(raw, fastq)
+    assert strict == want_strict
+    if strict:
+        _eq(codes, want)
+    return codes, strict
+
+
+@pytest.mark.parametrize("fastq", [False, True])
+def test_fasta_codes_sizes_across_tiles(dev, fastq):
+    """Sizes from one byte to 40 tiles (the look-back past one warp of
+    predecessors), cut anywhere, on views at byte offsets 0..15, and whole
+    strict FASTQ files."""
+    tile = kernels.lib().kmd_fasta_codes_tile_bytes()
+    assert tile == 8192
+    sizes = (1, 15, 16, 17, tile - 1, tile, tile + 1, 2 * tile + 5,
+             3 * tile - 1, 40_003, 40 * tile + 7)
+    for n in sizes:
+        data = _fasta_bytes(n, n, fastq)
+        for lead in (0, 1, 7, 15):
+            base = torch.frombuffer(bytearray(b"\0" * lead + data + b"\0" * 16),
+                                    dtype=torch.uint8).to(dev)
+            assert base.data_ptr() % 16 == 0
+            _fasta_check(base[lead : lead + n], fastq)
+    if fastq:  # whole records: strict
+        data = _fasta_bytes(5 * tile, 3, True)
+        data = data[: data.rindex(b"\n@") + 1]
+        _, strict = _fasta_check(torch.frombuffer(bytearray(data),
+                                                  dtype=torch.uint8).to(dev), True)
+        assert strict
+
+
+def test_fasta_codes_long_lines(dev):
+    """An 8 MB sequence line (a single-line assembly), a header line over
+    twelve tiles before it and a FASTQ record of 1 MB lines: the state of
+    a line crosses hundreds of tiles."""
+    rng = np.random.default_rng(11)
+    seq = np.frombuffer(b"ACGTN", dtype=np.uint8)[rng.integers(0, 5, 8 << 20)]
+    header = b">" + b"h" * 100_000 + b"\n"
+    raw = torch.frombuffer(bytearray(header + seq.tobytes() + b"\n>x\nAC"),
+                           dtype=torch.uint8).to(dev)
+    codes, _ = _fasta_check(raw, False)
+    assert codes.numel() == len(header) - 1 + (8 << 20) + 2 + 2
+    assert bool((codes[: len(header) - 1] == int(codec.INVALID)).all())
+    line = seq[: 1 << 20].tobytes()
+    fq = b"@r\n" + line + b"\n+\n" + b"I" * len(line) + b"\n"
+    _, strict = _fasta_check(torch.frombuffer(bytearray(fq * 3),
+                                              dtype=torch.uint8).to(dev), True)
+    assert strict
+
+
+def test_fasta_codes_bench_sample_file(dev, tmp_path):
+    """A kbench-shaped sample file (123,777 reads of 150 bp, 8-byte name
+    lines) through io.fasta.device_codes on the card: equal to the host's
+    flat_codes, one launch a file, no fallback; then a malformed FASTQ,
+    which the record parser takes, and the same files from four threads."""
+    import threading
+
+    from kmdiff_tpu_torch import profiling
+    from kmdiff_tpu_torch.io import fasta
+
+    rng = np.random.default_rng(12)
+    n_reads, size = 123_777, 150
+    rec = np.empty((n_reads, 160), dtype=np.uint8)
+    rec[:, :9] = np.frombuffer(b">r000000\n", dtype=np.uint8)
+    rec[:, 2:8] = np.frombuffer(b"0123456789", dtype=np.uint8)[
+        rng.integers(0, 10, (n_reads, 6))]
+    rec[:, 9:159] = np.frombuffer(b"ACGT", dtype=np.uint8)[
+        rng.integers(0, 4, (n_reads, size))]
+    rec[:, 159] = ord("\n")
+    paths = [tmp_path / "s.fasta", tmp_path / "bad.fq", tmp_path / "t.fasta"]
+    paths[0].write_bytes(rec.tobytes())
+    paths[1].write_bytes(b"@r1\nACGT\nACGT\n+\nIIII\nIIII\n")
+    paths[2].write_bytes(rec[::-1].tobytes())
+    timings: dict = {}
+    before = kernels.launch_counts()["fasta_codes"]
+    with fasta.FileStaging(dev) as staging, profiling.collect(timings):
+        for p in paths:
+            got = fasta.device_codes(str(p), dev, staging)
+            assert got.device == dev
+            np.testing.assert_array_equal(got.cpu().numpy(), fasta.flat_codes(str(p)))
+    assert kernels.launch_counts()["fasta_codes"] == before + 3
+    assert (timings["parse_files"], timings["parse_fallback_files"]) == (3, 1)
+
+    want = [fasta.flat_codes(str(p)) for p in paths]
+    errors = []
+
+    def work(i):
+        try:
+            with fasta.FileStaging(dev) as staging:
+                for r in range(3):
+                    j = (i + r) % 3
+                    got = fasta.device_codes(str(paths[j]), dev, staging)
+                    if not np.array_equal(got.cpu().numpy(), want[j]):
+                        errors.append((i, j))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and errors == []

@@ -4,7 +4,8 @@ on the CPU.
 - `run` (the fused path), `diff` and `diff --model` (the numpy plugin)
   given timings: each span of the paths they take adds its thread-seconds
   under `<name>_thread_s`, and the outputs are byte-identical to the same
-  command's without timings;
+  command's without timings; `run` also tallies its six files as decoded,
+  none by the record parser;
 - the sample threads' parse, copy and count spans fit in `--threads` times
   the count's wall; a partition's stages fit in its `kmd:partition` span;
 - the collector is one dict that every thread adds to under a lock: no
@@ -33,6 +34,8 @@ LOOSE = ["-1", "3", "-2", "3", "-s", "0.5", "--cutoff", "1", "-c", "disabled",
          "--threads", "2"]
 RUN_SPANS = {"parse_thread_s", "h2d_thread_s", "count_thread_s",
              "merge_chunk_thread_s", "device_thread_s"}
+#: the fused run's tallies: files decoded, and those the record parser took
+RUN_TALLIES = {"parse_files", "parse_fallback_files"}
 DIFF_STAGES = {"decode_thread_s", "groupsum_thread_s", "build_thread_s",
                "h2d_thread_s", "device_thread_s"}
 #: a custom model's partitions: the host union merge and its scores
@@ -76,8 +79,9 @@ def test_spans_fill_the_timings_and_change_no_output(cohort, tmp_path, command):
                 == (tmp_path / "plain" / name).read_bytes()), name
     assert plain["total_kmers"] > 0
     if command == "run":
-        assert set(timings) == {"count", "merge", "total"} | RUN_SPANS
+        assert set(timings) == {"count", "merge", "total"} | RUN_SPANS | RUN_TALLIES
         assert all(timings[k] > 0 for k in RUN_SPANS)
+        assert (timings["parse_files"], timings["parse_fallback_files"]) == (6, 0)
         # the three never overlap on a sample thread, and two sample
         # threads run at once
         count = sum(timings[k] for k in ("parse_thread_s", "h2d_thread_s",
