@@ -14,14 +14,26 @@ A mix's keys:
            job, each ``{"command": "count", "flags": [...]}`` on the cohort;
            their run directory is the one every ``diff`` job reads, and
            holds the histograms the comparison reads
+  analysis (optional) popstrat's settings (``ANALYSIS_FLAGS``:
+           ``pop_correction``, ``kmer_pca``, ``n_pc``), for example
+           ``{"pop_correction": true, "kmer_pca": 0.001, "n_pc": 2}``.
+           Each becomes its flag on every command that takes it, after the
+           configuration's flags; the harness hands the reference the
+           configuration with the same dict added (``overlay``). The
+           configuration alone states the rest of the analysis (k,
+           hard-min, the correction): a mix cannot restate it. With
+           ``pop_correction`` the comparison holds popstrat's p-values
+           (kbench.compare).
   about    what the mix is (free text)
 
 Every job gets a fresh output directory, and a ``run`` job a fresh run
 directory too. The analysis flags come from the configuration: k,
-hard-min, partitions, threads, significance, cutoff and correction. A
-job's ``phases`` are whatever seconds the command hands its ``timings``
-(``run``: count, merge, total; ``diff``: popstrat's pca, null_fit,
-alt_fits); the harness passes them to the metric readers unchanged.
+hard-min, partitions, threads, significance, cutoff and correction, then
+the mix's ``analysis``. A job's ``phases`` are whatever seconds the
+command hands its ``timings`` (``run``: count, merge, total and the
+count's spans; ``diff``: the partitions' spans, ``decode_thread_s`` and
+the others, and with popstrat pca, null_fit, alt_fits); the harness passes
+them to the metric readers unchanged.
 """
 
 from __future__ import annotations
@@ -41,6 +53,13 @@ FALLBACK_MARK = "fused pipeline unavailable"
 #: commands a job may run (each writes the output the comparison reads)
 JOB_COMMANDS = ("run", "diff")
 SETUP_COMMANDS = ("count",)
+#: an ``analysis`` key (popstrat's alone) -> its flag (a switch where the
+#: value is a bool) and the commands that take it
+ANALYSIS_FLAGS = {
+    "pop_correction": ("--pop-correction", ("diff", "run")),
+    "kmer_pca": ("--kmer-pca", ("diff", "run")),
+    "n_pc": ("--n-pc", ("diff", "run")),
+}
 
 
 @dataclasses.dataclass
@@ -79,12 +98,35 @@ def load(kbench_dir: str, mix: str) -> dict:
     for step in traffic.get("setup", []):
         if step["command"] not in SETUP_COMMANDS:
             raise ValueError(f"traffic {mix}: set-up command {step['command']!r}")
+    unknown = set(traffic.get("analysis", {})) - set(ANALYSIS_FLAGS)
+    if unknown:
+        raise ValueError(f"traffic {mix}: analysis keys {sorted(unknown)}")
     return traffic
 
 
+def overlay(config: dict, traffic: dict) -> dict:
+    """The configuration as the mix's jobs run it: with its ``analysis``."""
+    return {**config, **traffic.get("analysis", {})}
+
+
+def analysis_flags(analysis: dict, command: str) -> list[str]:
+    """The flags of `analysis` (a mix's ``analysis``) that `command` takes."""
+    out = []
+    for key, value in analysis.items():
+        flag, commands = ANALYSIS_FLAGS[key]
+        if command not in commands:
+            continue
+        if isinstance(value, bool):
+            out += [flag] if value else []
+        else:
+            out += [flag, str(value)]
+    return out
+
+
 def argv(config: dict, command: str, flags: list, fof: str, run_dir: str,
-         out_dir: str) -> list[str]:
-    """The command line of one command on the cohort."""
+         out_dir: str, analysis: dict | None = None) -> list[str]:
+    """The command line of one command on the cohort: the configuration's
+    flags, then `analysis`'s (a mix's), then the mix's `flags`."""
     count = ["--kmer-size", str(config["kmer_size"]),
              "--hard-min", str(config["hard_min"]),
              "--nb-partitions", str(config["nb_partitions"])]
@@ -92,7 +134,8 @@ def argv(config: dict, command: str, flags: list, fof: str, run_dir: str,
             "--significance", str(config["significance"]),
             "--cutoff", str(config["cutoff"]),
             "--correction", config["correction"]]
-    common = ["--threads", str(config["threads"]), "--devices", "1", *flags]
+    common = ["--threads", str(config["threads"]), "--devices", "1",
+              *analysis_flags(analysis or {}, command), *flags]
     if command == "count":
         return ["count", "--file", fof, "--run-dir", run_dir, *count, *common]
     if command == "diff":
@@ -154,7 +197,7 @@ def setup(config: dict, traffic: dict, fof: str, work: str,
     run_dir = os.path.join(work, "setup", "run")
     for step in traffic.get("setup", []):
         args = cli.parse_args(argv(config, step["command"], step.get("flags", []),
-                                   fof, run_dir, ""))
+                                   fof, run_dir, "", traffic.get("analysis")))
         error = _timed(args, device)[3]
         if error:
             raise RuntimeError(f"set-up command {step['command']} failed:\n{error}")
@@ -170,6 +213,7 @@ def run_job(index: int, config: dict, traffic: dict, fof: str, work: str,
     command = traffic["command"]
     run_dir = setup_run_dir if command == "diff" else os.path.join(base, "run")
     out_dir = os.path.join(base, "out")
-    args = cli.parse_args(argv(config, command, traffic["flags"], fof, run_dir, out_dir))
+    args = cli.parse_args(argv(config, command, traffic["flags"], fof, run_dir, out_dir,
+                               traffic.get("analysis")))
     wall, phases, result, error, fell_back = _timed(args, device)
     return Job(wall, phases, result, run_dir, out_dir, fell_back, error, own=(base,))
